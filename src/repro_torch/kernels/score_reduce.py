@@ -1,0 +1,327 @@
+"""Batched Eq. (1) score reduction + tie-broken argmin (PyTorch + CUDA).
+
+Twin of ``repro.kernels.score_reduce``.  The engine's candidate set for
+one scheduling event is a (B, S) block of per-slot energy deviations and
+unit counts (``ScoredBatch.padded_cols``), optionally DVFS frequency
+levels (``ScoredBatch.padded_f``).  Scoring it is the row reduction
+
+    S[b] = Σ_s dev[b, s] / max(n[b], 1) + λ·(G_free − Σ_s g[b, s]) / M
+           + λ_f·Σ_s f[b, s] / max(n[b], 1) + bias[b]
+
+with +inf where ``mask`` is 0, followed by the argmin under EcoSched's
+tie-break: lowest score, then largest total unit count, then earliest
+row; -1 when no row is feasible.
+
+Each function has two versions here.  On a CUDA tensor the wrapper
+launches the hand-written kernel of ``csrc/score_reduce.cu`` (built at
+first use by ``_build``) or raises; it never falls back.  On a CPU tensor
+it runs the plain PyTorch version, which sums the slot columns left to
+right in float32 and applies the kernel's operation order, so the two
+agree bitwise on the card.  Only a kernel launch counts in ``STATS``.
+
+Unlike the reference, nothing is padded: rows and slots go to the kernel
+as they are (the reference's power-of-two rows and 8-slot padding served
+the TPU's tiling and its jit cache).
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+_BLOCK = 256  # rows per block of the CUDA kernel (csrc kThreads)
+
+
+@dataclass
+class KernelStats:
+    """Launches of one kernel, and the rows they reduced."""
+
+    launches: int = 0
+    rows: int = 0
+    max_rows: int = 0
+
+    def add(self, rows: int) -> None:
+        self.launches += 1
+        self.rows += rows
+        self.max_rows = max(self.max_rows, rows)
+
+
+STATS: Dict[str, KernelStats] = {
+    "score_reduce": KernelStats(),
+    "score_reduce_multi": KernelStats(),
+}
+
+
+def reset_stats() -> None:
+    for name in STATS:
+        STATS[name] = KernelStats()
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check_block(dev, g, n, f, bias, mask) -> Tuple[int, int]:
+    """Validate a (B, S) block and its (B,) columns; returns (B, S)."""
+    if not isinstance(dev, torch.Tensor) or dev.dim() != 2:
+        raise TypeError("dev must be a (B, S) torch tensor")
+    B, S = dev.shape
+    for name, t, shape in (
+        ("dev", dev, (B, S)), ("g", g, (B, S)), ("f", f, (B, S)),
+        ("n", n, (B,)), ("bias", bias, (B,)), ("mask", mask, (B,)),
+    ):
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != dev.device:
+            raise ValueError(f"{name} is on {t.device}, dev on {dev.device}")
+    return B, S
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the definition; the CPU path)
+# ---------------------------------------------------------------------------
+
+
+def _row_scores_plain(dev, g, f, n, bias, mask, lam, g_free, M, lam_f):
+    """Per-row (scores, Σg) in the kernel's order of operations.  ``lam``
+    .. ``lam_f`` are float32 tensors broadcastable to (B,) on the block's
+    device — never Python or host scalars, which the card's division
+    would turn into a reciprocal multiply."""
+    B, S = dev.shape
+    sd = torch.zeros(B, dtype=torch.float32, device=dev.device)
+    sg = torch.zeros_like(sd)
+    sf = torch.zeros_like(sd)
+    for s in range(S):  # left to right, as the kernel sums
+        sd = sd + dev[:, s]
+        sg = sg + g[:, s]
+        if f is not None:
+            sf = sf + f[:, s]
+    n_eff = torch.clamp(n, min=1.0)
+    v = sd / n_eff + (lam * (g_free - sg)) / M + (lam_f * sf) / n_eff
+    if bias is not None:
+        v = v + bias
+    if mask is not None:
+        v = torch.where(mask > 0, v, torch.full_like(v, float("inf")))
+    return v, sg
+
+
+def _pick_plain(scores: torch.Tensor, tot: torch.Tensor) -> int:
+    """Tie-broken argmin: min score, then max Σg, then min row; -1 when
+    nothing is feasible (empty or all +inf)."""
+    if scores.numel() == 0:
+        return -1
+    m = scores.min()
+    if torch.isinf(m):
+        return -1
+    tie = scores == m
+    t_best = torch.where(tie, tot, torch.full_like(tot, -1.0)).max()
+    return int(torch.nonzero(tie & (tot == t_best))[0, 0])
+
+
+def score_reduce_plain(dev, g, n, *, lam, g_free, M, f=None, lam_f=0.0,
+                       bias=None, mask=None) -> Tuple[torch.Tensor, int]:
+    """Plain PyTorch version of :func:`score_reduce` (same arguments)."""
+    _check_block(dev, g, n, f, bias, mask)
+    p = torch.tensor([lam, g_free, M, lam_f], dtype=torch.float32,
+                     device=dev.device)
+    scores, tot = _row_scores_plain(dev, g, f, n, bias, mask, p[0], p[1],
+                                    p[2], p[3])
+    return scores, _pick_plain(scores, tot)
+
+
+def score_reduce_multi_plain(dev, g, n, offsets, params, *, f=None,
+                             bias=None, mask=None
+                             ) -> Tuple[torch.Tensor, List[int]]:
+    """Plain PyTorch version of :func:`score_reduce_multi`."""
+    _check_block(dev, g, n, f, bias, mask)
+    off, W = _check_windows(offsets, params, dev)
+    lo, hi = off[:-1], off[1:]
+    wid = torch.repeat_interleave(
+        torch.arange(W, device=dev.device), (hi - lo).to(torch.int64)
+    )
+    rp = params.index_select(0, wid)  # per-row [λ, G_free, M, λ_f]
+    scores, tot = _row_scores_plain(dev, g, f, n, bias, mask, rp[:, 0],
+                                    rp[:, 1], rp[:, 2], rp[:, 3])
+    bests = []
+    for a, b in zip(lo.tolist(), hi.tolist()):
+        bests.append(_pick_plain(scores[a:b], tot[a:b]))
+    return scores, bests
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: the CUDA kernel on a CUDA tensor, the plain version on the CPU
+# ---------------------------------------------------------------------------
+
+
+def score_reduce(dev, g, n, *, lam, g_free, M, f=None, lam_f=0.0,
+                 bias=None, mask=None) -> Tuple[torch.Tensor, int]:
+    """Scores + tie-broken argmin for a (B, S) candidate block.
+
+    ``dev``/``g`` (and the optional frequency plane ``f``, weighted by
+    ``lam_f``) are (B, S) float32 slot columns, zero past each action's
+    size ``n`` (B,); ``bias`` is an optional per-row additive term and
+    ``mask`` (B,) marks feasible rows with a value > 0 (default: all).
+    All tensors lie on one device.  Returns (float32 scores (B,), winning
+    row) — the row is -1 when no candidate is feasible.
+    """
+    B, S = _check_block(dev, g, n, f, bias, mask)
+    if _device_kind(dev) == "cpu":
+        return score_reduce_plain(dev, g, n, lam=lam, g_free=g_free, M=M,
+                                  f=f, lam_f=lam_f, bias=bias, mask=mask)
+    scores = torch.empty(B, dtype=torch.float32, device=dev.device)
+    if B == 0:
+        return scores, -1
+    from repro_torch.kernels._build import library
+
+    lib = library()
+    nb = -(-B // _BLOCK)
+    bmin = torch.empty(nb, dtype=torch.float32, device=dev.device)
+    btot = torch.empty(nb, dtype=torch.float32, device=dev.device)
+    bidx = torch.empty(nb, dtype=torch.int32, device=dev.device)
+    best = torch.empty(1, dtype=torch.int32, device=dev.device)
+    stream = torch.cuda.current_stream(dev.device).cuda_stream
+    err = lib.score_reduce_launch(
+        _ptr(dev), _ptr(g), _ptr(f), _ptr(n), _ptr(bias), _ptr(mask),
+        B, S, float(lam), float(g_free), float(M), float(lam_f),
+        _ptr(scores), _ptr(bmin), _ptr(btot), _ptr(bidx), _ptr(best),
+        ctypes.c_void_p(stream),
+    )
+    _raise_on(err, "score_reduce launch")
+    STATS["score_reduce"].add(B)
+    return scores, int(best.item())
+
+
+def _check_windows(offsets, params, dev) -> Tuple[torch.Tensor, int]:
+    if offsets.dtype != torch.int32 or offsets.dim() != 1:
+        raise TypeError("offsets must be a 1-D int32 tensor")
+    W = offsets.shape[0] - 1
+    if W < 0:
+        raise ValueError("offsets needs at least one entry")
+    if params.dtype != torch.float32 or tuple(params.shape) != (W, 4):
+        raise ValueError(f"params must be float32 of shape ({W}, 4)")
+    for name, t in (("offsets", offsets), ("params", params)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != dev.device:
+            raise ValueError(f"{name} is on {t.device}, dev on {dev.device}")
+    return offsets, W
+
+
+def score_reduce_multi(dev, g, n, offsets, params, *, f=None, bias=None,
+                       mask=None) -> Tuple[torch.Tensor, List[int]]:
+    """Reduce many candidate windows packed on the row axis in one launch.
+
+    Window ``w`` owns rows ``offsets[w]:offsets[w+1]`` of the (R, S)
+    block (``offsets`` int32, (W+1,), non-decreasing from 0 to R) and
+    scores with its own ``params[w] = [λ, G_free, M, λ_f]`` (float32,
+    (W, 4)).  Every window's scores and winner are bitwise those of a solo
+    :func:`score_reduce` on its rows.  Returns (scores (R,), one
+    window-local winning row per window, -1 for an empty or all-infeasible
+    window).  :func:`pack_windows` builds the arguments from request
+    dicts.
+    """
+    R, S = _check_block(dev, g, n, f, bias, mask)
+    _, W = _check_windows(offsets, params, dev)
+    if _device_kind(dev) == "cpu":
+        return score_reduce_multi_plain(dev, g, n, offsets, params, f=f,
+                                        bias=bias, mask=mask)
+    scores = torch.empty(R, dtype=torch.float32, device=dev.device)
+    if W == 0:
+        return scores, []
+    from repro_torch.kernels._build import library
+
+    best = torch.empty(W, dtype=torch.int32, device=dev.device)
+    stream = torch.cuda.current_stream(dev.device).cuda_stream
+    err = library().score_reduce_multi_launch(
+        _ptr(dev), _ptr(g), _ptr(f), _ptr(n), _ptr(bias), _ptr(mask),
+        _ptr(offsets), _ptr(params), W, S, _ptr(scores), _ptr(best),
+        ctypes.c_void_p(stream),
+    )
+    _raise_on(err, "score_reduce_multi launch")
+    STATS["score_reduce_multi"].add(R)
+    return scores, best.tolist()
+
+
+def pack_windows(reqs: Sequence[Dict[str, Any]], device) -> Dict[str, Any]:
+    """Pack request dicts into :func:`score_reduce_multi`'s arguments on
+    ``device`` — the reference's request shape: numpy ``dev``/``g`` (B, S),
+    ``n`` (B,), scalars ``lam``/``g_free``/``M``, optional ``f``/``lam_f``/
+    ``bias``/``mask``.  Windows concatenate on the row axis, zero-padded
+    to the widest S (appended zeros add exactly +0.0 to every slot sum);
+    the float planes share one host buffer, so the upload is one copy
+    for them and one for the offsets."""
+    sizes = [r["dev"].shape for r in reqs]
+    R = sum(b for b, _ in sizes)
+    S = max((s for _, s in sizes), default=1) or 1
+    W = len(reqs)
+    has_f = any(r.get("f") is not None for r in reqs)
+    has_bias = any(r.get("bias") is not None for r in reqs)
+    has_mask = any(r.get("mask") is not None for r in reqs)
+    n_planes = 3 if has_f else 2
+    n_cols = 1 + has_bias + has_mask
+    buf = np.zeros(n_planes * R * S + n_cols * R + 4 * W, dtype=np.float32)
+    planes = [buf[k * R * S:(k + 1) * R * S].reshape(R, S)
+              for k in range(n_planes)]
+    at = n_planes * R * S
+    cols = [buf[at + k * R: at + (k + 1) * R] for k in range(n_cols)]
+    params = buf[at + n_cols * R:].reshape(W, 4)
+    offsets = np.zeros(W + 1, dtype=np.int32)
+    off = 0
+    for k, r in enumerate(reqs):
+        B, s = sizes[k]
+        rows = slice(off, off + B)
+        planes[0][rows, :s] = r["dev"]
+        planes[1][rows, :s] = r["g"]
+        if has_f and r.get("f") is not None:
+            planes[2][rows, :s] = r["f"]
+        cols[0][rows] = np.asarray(r["n"], dtype=np.float32).reshape(B)
+        c = 1
+        if has_bias:
+            if r.get("bias") is not None:
+                cols[c][rows] = np.asarray(r["bias"], dtype=np.float32).reshape(B)
+            c += 1
+        if has_mask:
+            m = r.get("mask")
+            cols[c][rows] = (
+                1.0 if m is None else np.asarray(m, dtype=np.float32).reshape(B)
+            )
+        params[k] = [r["lam"], r["g_free"], r["M"], r.get("lam_f", 0.0)]
+        off += B
+        offsets[k + 1] = off
+    dbuf = torch.from_numpy(buf).to(device)
+    at = n_planes * R * S
+    out = dict(
+        dev=dbuf[:R * S].view(R, S),
+        g=dbuf[R * S:2 * R * S].view(R, S),
+        f=dbuf[2 * R * S:3 * R * S].view(R, S) if has_f else None,
+        n=dbuf[at:at + R],
+        offsets=torch.from_numpy(offsets).to(device),
+        params=dbuf[at + n_cols * R:].view(W, 4),
+    )
+    c = 1
+    out["bias"] = dbuf[at + c * R: at + (c + 1) * R] if has_bias else None
+    c += has_bias
+    out["mask"] = dbuf[at + c * R: at + (c + 1) * R] if has_mask else None
+    return out

@@ -1,0 +1,83 @@
+"""The CUDA kernels on the card: each against its plain PyTorch version
+on the same device tensors, and the torch engine's schedule against the
+numpy engine's.  Needs an NVIDIA GPU and nvcc; skips elsewhere.
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _block(rng, B, S, device):
+    n = rng.integers(0, S + 1, B).astype(np.float32)
+    slot = np.arange(S)[None, :] < n[:, None]
+    dev = np.where(slot, rng.uniform(0, 2, (B, S)), 0).astype(np.float32)
+    g = np.where(slot, rng.integers(1, 5, (B, S)), 0).astype(np.float32)
+    mask = (rng.uniform(size=B) > 0.2).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (dev, g, n, mask)]
+
+
+@pytest.mark.parametrize("B", [1, 255, 256, 257, 6181])
+def test_score_reduce_kernel_matches_plain(device, B):
+    from repro_torch.kernels import score_reduce as K
+
+    rng = np.random.default_rng(B)
+    dev, g, n, mask = _block(rng, B, 4, device)
+    kw = dict(lam=0.35, g_free=16, M=16, mask=mask)
+    before = K.STATS["score_reduce"].launches
+    s_k, b_k = K.score_reduce(dev, g, n, **kw)
+    s_p, b_p = K.score_reduce_plain(dev, g, n, **kw)
+    assert K.STATS["score_reduce"].launches == before + 1
+    assert b_k == b_p
+    assert torch.equal(s_k, s_p)
+
+
+def test_score_reduce_multi_kernel_matches_solo(device):
+    from repro_torch.kernels import score_reduce as K
+
+    rng = np.random.default_rng(3)
+    reqs = []
+    for k, B in enumerate((5, 0, 300, 17)):
+        dev, g, n, _ = (t.cpu().numpy() for t in _block(rng, B, 2, "cpu"))
+        reqs.append(dict(dev=dev, g=g, n=n, lam=0.1 * (k + 1), g_free=8, M=8))
+    packed = K.pack_windows(reqs, device)
+    scores, bests = K.score_reduce_multi(**packed)
+    assert bests == K.score_reduce_multi_plain(**packed)[1]
+    off = packed["offsets"].tolist()
+    for w, (lo, hi) in enumerate(zip(off, off[1:])):
+        s_w, b_w = K.score_reduce(packed["dev"][lo:hi], packed["g"][lo:hi],
+                                  packed["n"][lo:hi], lam=reqs[w]["lam"],
+                                  g_free=8, M=8)
+        assert b_w == bests[w]
+        assert torch.equal(s_w, scores[lo:hi])
+    assert bests[1] == -1
+
+
+def test_torch_engine_schedule_on_the_card(device):
+    from repro_torch.core import EcoSched, Node, ProfiledPerfModel, simulate
+    from repro_torch.core import calibration as C
+    from repro_torch.kernels import score_reduce as K
+
+    truth = C.build_system("h100", freq_levels=4)
+    out = {}
+    for engine in ("torch", "vector"):
+        K.reset_stats()
+        pol = EcoSched(ProfiledPerfModel(truth, noise=0.02, seed=1), lam=0.35,
+                       tau=0.45, lam_f=0.1, engine=engine)
+        r = simulate(pol, Node(4, 2, C.idle_power("h100")), truth,
+                     queue=list(C.APP_ORDER))
+        out[engine] = ([(x.job, x.g, x.f, x.start, x.end) for x in r.records],
+                       r.makespan, r.total_energy, K.STATS["score_reduce"].launches)
+    assert out["torch"][:3] == out["vector"][:3]
+    assert out["torch"][3] > 0 and out["vector"][3] == 0
