@@ -5,16 +5,21 @@
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card, then drives the
-port's main path -- ``simulate()`` with ``EcoSched(engine="torch",
-device="cuda")`` -- on the paper's calibrated node (h100/a100/v100, and
-h100 with a 4-level DVFS ladder), on the elastic resize path, and on a
-pod-scale node (M=16, K=4) with an online backlog of synthetic jobs.
-Every schedule must equal the numpy engine's (``engine="vector"``) bit
-for bit, and every kernel of the path must have been launched.
+port's main paths.  The single-node path -- ``simulate()`` with
+``EcoSched(engine="torch", device="cuda")`` -- runs on the paper's
+calibrated node (h100/a100/v100, and h100 with a 4-level DVFS ladder), on
+the elastic resize path, and on a pod-scale node (M=16, K=4) with an
+online backlog of synthetic jobs.  The fleet path -- ``Cluster.simulate``
+and ``Cluster.open_run`` over 256 nodes of torch-engine policies -- runs
+the two 256-node cells of ``benchmarks/bench_fleet.py`` (bursty arrivals;
+elastic completions), whose same-instant bursts reach the card as one
+cross-node ``score_reduce_batch`` / ``score_reduce_multi`` launch.  Every
+schedule must equal the numpy engine's (``engine="vector"``) bit for bit,
+and every kernel of each path must have been launched.
 
 Phases: 1 device and build, 2 kernels vs plain versions, 3 paper node,
-4 elastic, 5 pod scale, 6 kernel timings.  The last two lines are the
-kernels' JSON record and ``{"ok": true, "device": {...}}``.  Any failed
+4 elastic, 5 pod scale, 6 fleet, 7 kernel timings.  The last two lines
+are the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the exit code is non-zero; without a CUDA device, or
 without the repository around it, the script exits 2 and prints no
 result.  It imports nothing of JAX and nothing of the reference package.
@@ -37,6 +42,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 H100_RATIOS, H100_FLOOR = (1.0, 0.86, 0.72, 0.58), 0.32
 POD_JOBS = 240
+# the fleet cells of benchmarks/bench_fleet.py (FULL_SWEEP / ELASTIC_SWEEP
+# at 256 nodes): nodes of M=8 units in K=2 domains, one chip per 16-node
+# pod cycling H100/A100/V100, 8 pods per region, window 8
+FLEET_NODES, FLEET_M, FLEET_K, POD_SIZE, PODS_PER_REGION = 256, 8, 2, 16, 8
+FLEET_APPS, FLEET_JOBS, FLEET_WINDOW = 8, 2048, 8
+CHIP_SLOW = {"h100": 1.0, "a100": 1.6, "v100": 2.6}
+KERNELS = ("score_reduce", "score_reduce_batch", "score_reduce_multi")
 
 
 def check(cond, msg: str) -> None:
@@ -121,6 +133,57 @@ def pod_truth(n_jobs, M=16, levels=4, seed=7):
     return truth, stream
 
 
+def synth_apps(chip, n_apps=FLEET_APPS, seed=3):
+    """``benchmarks/bench_fleet.synth_apps``: three mode families (elastic
+    {2,4,8}, rigid {8}, small {1,2}), slower on older chips."""
+    import numpy as np
+    from repro_torch.core import JobProfile
+
+    s = CHIP_SLOW[chip.name]
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(n_apps):
+        counts = (1, 2) if i % 3 == 0 else ((8,) if i % 3 == 1 else (2, 4, 8))
+        t1 = float(rng.uniform(60.0, 240.0))
+        alpha = float(rng.uniform(0.35, 0.95))
+        beta = float(rng.uniform(0.6, 0.9))
+        p0 = float(rng.uniform(250.0, 400.0))
+        out[f"app{i}"] = JobProfile(
+            name=f"app{i}",
+            runtime={g: s * t1 / g ** alpha for g in counts},
+            busy_power={g: (p0 / s ** 0.5) * g ** beta for g in counts},
+        )
+    return out
+
+
+def synth_elastic_apps(chip, n_apps=FLEET_APPS, seed=5):
+    """``benchmarks/bench_fleet.synth_elastic_apps``: even apps are long
+    strong-scaling {4,8} jobs, odd apps short rigid 4-unit anchors whose
+    completions free half a node next to them."""
+    import numpy as np
+    from repro_torch.core import JobProfile
+
+    s = CHIP_SLOW[chip.name]
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(n_apps):
+        if i % 2 == 0:
+            counts = (4, 8)
+            t1 = float(rng.uniform(3600.0, 10800.0))
+            alpha = float(rng.uniform(0.42, 0.52))
+            beta = alpha - float(rng.uniform(0.10, 0.20))
+            p0 = float(rng.uniform(250.0, 400.0))
+            rt = {g: s * t1 / g ** alpha for g in counts}
+            bp = {g: (p0 / s ** 0.5) * g ** beta for g in counts}
+        else:
+            t4 = float(rng.uniform(600.0, 1800.0))
+            p0 = float(rng.uniform(250.0, 400.0))
+            rt = {4: s * t4}
+            bp = {4: (p0 / s ** 0.5) * 4 ** 0.7}
+        out[f"app{i}"] = JobProfile(name=f"app{i}", runtime=rt, busy_power=bp)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: every kernel against its plain version on the card
 # ---------------------------------------------------------------------------
@@ -128,8 +191,8 @@ def pod_truth(n_jobs, M=16, levels=4, seed=7):
 
 class Diff:
     def __init__(self):
-        self.max_abs = {"score_reduce": 0.0, "score_reduce_multi": 0.0}
-        self.cases = {"score_reduce": 0, "score_reduce_multi": 0}
+        self.max_abs = {k: 0.0 for k in KERNELS}
+        self.cases = {k: 0 for k in KERNELS}
 
     def scores(self, name, a, b, tag):
         import torch
@@ -175,6 +238,55 @@ def multi_vs_plain(diff, reqs, device, tag):
                                   packed["n"][sl], **kw)
         check(b_w == b_k[w], f"multi {tag} window {w}: {b_k[w]} != solo {b_w}")
         check(torch.equal(s_w, s_k[sl]), f"multi {tag} window {w}: not bitwise")
+
+
+def batch_vs_plain(diff, reqs, device, tag):
+    """``score_reduce_batch`` against its plain version, and each node
+    bitwise against a solo ``score_reduce`` on its rows."""
+    import torch
+    from repro_torch.kernels import score_reduce as K
+
+    packed = K.pack_windows(reqs, device)
+    s_k, b_k = K.score_reduce_batch(**packed)
+    s_p, b_p = K.score_reduce_batch_plain(**packed)
+    check(b_k == b_p, f"score_reduce_batch {tag}: winners differ from plain")
+    diff.scores("score_reduce_batch", s_k, s_p, tag)
+    off = packed["offsets"].tolist()
+    for d, (lo, hi) in enumerate(zip(off, off[1:])):
+        sl = slice(lo, hi)
+        kw = dict(lam=reqs[d]["lam"], g_free=reqs[d]["g_free"], M=reqs[d]["M"],
+                  lam_f=reqs[d].get("lam_f", 0.0),
+                  **{k: None if packed[k] is None else packed[k][sl]
+                     for k in ("f", "bias", "mask")})
+        s_d, b_d = K.score_reduce(packed["dev"][sl], packed["g"][sl],
+                                  packed["n"][sl], **kw)
+        check(b_d == b_k[d], f"batch {tag} node {d}: {b_k[d]} != solo {b_d}")
+        check(torch.equal(s_d, s_k[sl]), f"batch {tag} node {d}: not bitwise")
+    return b_k
+
+
+def ragged_node_reqs(rng, sizes, *, f, bias, mask):
+    """One seeded request per node: B_k rows (ragged, 0 included) of S_k
+    slots (1 to 8), zero past each row's size, per-node scalars."""
+    import numpy as np
+
+    reqs = []
+    for k, B in enumerate(sizes):
+        S = int(rng.integers(1, 9))
+        n = rng.integers(0, S + 1, B).astype(np.float32)
+        slot = np.arange(S)[None, :] < n[:, None]
+        r = dict(dev=np.where(slot, rng.uniform(0, 2, (B, S)), 0).astype(np.float32),
+                 g=np.where(slot, rng.integers(1, 5, (B, S)), 0).astype(np.float32),
+                 n=n, lam=LAM + 0.01 * (k % 7), g_free=int(rng.integers(0, 17)), M=16)
+        if f:
+            r["f"] = np.where(slot, rng.integers(0, 4, (B, S)), 0).astype(np.float32)
+            r["lam_f"] = 0.1
+        if bias:
+            r["bias"] = rng.uniform(0, 0.3, B)
+        if mask:
+            r["mask"] = rng.uniform(size=B) > 0.3
+        reqs.append(r)
+    return reqs
 
 
 def phase_kernels(device) -> Diff:
@@ -253,6 +365,22 @@ def phase_kernels(device) -> Diff:
     s0, b0 = solo_vs_plain(diff, dict(dev=z, g=z, n=torch.zeros(0, device=device)),
                            dict(lam=LAM, g_free=4, M=4), "B0")
     check(b0 == -1 and s0.numel() == 0, "B=0 must give (empty, -1)")
+    # the cross-node batch: D from 1 to 256 nodes, ragged B_k from 0 to
+    # 50,000, S from 1 to 8 per node, f / bias / mask each on and off
+    for D in (1, 7, 64, 256):
+        sizes = rng.integers(0, 2000, D)
+        sizes[rng.integers(0, D)] = 50000 if D > 1 else 257
+        if D > 1:
+            sizes[0] = 0
+        for f, bias, mask in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 1)):
+            reqs = ragged_node_reqs(rng, sizes, f=f, bias=bias, mask=mask)
+            bests = batch_vs_plain(diff, reqs, device, f"D{D}f{f}b{bias}m{mask}")
+            check(D == 1 or bests[0] == -1, "an empty node must give -1")
+    edge = ragged_node_reqs(rng, [0, 300, 300, 0], f=True, bias=True, mask=False)
+    edge[2]["mask"] = np.zeros(300, bool)  # all-infeasible node
+    check(batch_vs_plain(diff, edge, device, "edges")[::2] == [-1, -1],
+          "empty and all-masked nodes must give -1")
+    check(batch_vs_plain(diff, edge[:1], device, "D1 B0") == [-1], "D=1, B=0")
     if device.type == "cuda":  # a fault during the runs surfaces here
         torch.cuda.synchronize()
     return diff
@@ -302,17 +430,20 @@ class MainPath:
 
     def __init__(self):
         self.launches = {k: {"launches": 0, "rows": 0, "max_rows": 0}
-                         for k in ("score_reduce", "score_reduce_multi")}
+                         for k in KERNELS}
         self.solo = None  # (rows, batch, g_free, M, lam_f)
         self.multi = None  # (rows, reqs)
         self.pod = None  # the pod run's largest solo inputs
+        self.batch = None  # (rows, nodes, packed kwargs) of the fleet
 
-    def add(self, stats, pol):
+    def add(self, stats, pol=None):
         for name, st in stats.items():
             tot = self.launches[name]
             tot["launches"] += st["launches"]
             tot["rows"] += st["rows"]
             tot["max_rows"] = max(tot["max_rows"], st["max_rows"])
+        if pol is None:
+            return
         if pol.largest and (self.solo is None or pol.largest[0] > self.solo[0]):
             self.solo = pol.largest
         if pol.largest_multi and (self.multi is None
@@ -326,6 +457,14 @@ def fp(res):
     s = ";".join(f"{r.job}|{r.g}|{r.f}|{r.start!r}|{r.end!r}|{r.domain}|{r.kind}"
                  for r in res.records)
     return hashlib.md5(s.encode()).hexdigest(), res.makespan, res.total_energy
+
+
+def read_stats():
+    from repro_torch.kernels import score_reduce as K
+
+    return {k: dict(launches=v.launches, rows=v.rows, max_rows=v.max_rows,
+                    windows=v.windows, max_windows=v.max_windows)
+            for k, v in K.STATS.items()}
 
 
 def run_pair(truth, node, *, sim_kw, pol_kw, device, label, path,
@@ -348,8 +487,7 @@ def run_pair(truth, node, *, sim_kw, pol_kw, device, label, path,
             K.reset_stats()
         res = simulate(pol, node, truth, **sim_kw)
         if engine == "torch":
-            kstats = {k: dict(launches=v.launches, rows=v.rows, max_rows=v.max_rows)
-                      for k, v in K.STATS.items()}
+            kstats = read_stats()
             path.add(kstats, pol)
         out[engine] = (res, pol)
     (rt, pt), (rv, pv) = out["torch"], out["vector"]
@@ -447,7 +585,218 @@ def phase_pod(device, path):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: times at the main path's largest shapes
+# Phase 6: the fleet path, 256 nodes
+# ---------------------------------------------------------------------------
+
+
+def fleet_cluster(engine, device, truth, hier, policies, **pol_kw):
+    """bench_fleet's 256-node fleet under ``EnergyAwareDispatcher``, flat or
+    wrapped in ``HierarchicalDispatcher`` (16-node pods, 8 per region)."""
+    from repro_torch.core import (Cluster, EcoSched, EnergyAwareDispatcher,
+                                  HierarchicalDispatcher, NodeSpec, ProfiledPerfModel)
+    from repro_torch.roofline.hw import A100, H100, V100
+
+    chips = (H100, A100, V100)
+    extra = {"device": device} if engine == "torch" else {}
+
+    def policy_for(spec, t):
+        pol = EcoSched(ProfiledPerfModel(t, noise=0.0, seed=1), lam=LAM, tau=TAU,
+                       window=FLEET_WINDOW, engine=engine, **extra, **pol_kw)
+        policies.append(pol)
+        return pol
+
+    disp = EnergyAwareDispatcher()
+    if hier:
+        disp = HierarchicalDispatcher(disp, pod_size=POD_SIZE,
+                                      pods_per_region=PODS_PER_REGION)
+    return Cluster(
+        [NodeSpec(f"n{i:04d}", chips[(i // POD_SIZE) % len(chips)], units=FLEET_M,
+                  domains=FLEET_K) for i in range(FLEET_NODES)],
+        truth_for=lambda spec: truth[spec.chip.name], policy_for=policy_for,
+        dispatcher=disp,
+    )
+
+
+def fleet_fp(res):
+    import hashlib
+
+    s = ";".join(f"{r.job}|{r.node}|{r.g}|{r.f}|{r.start!r}|{r.end!r}|{r.kind}|{r.segment}"
+                 for r in res.records)
+    return hashlib.md5(s.encode()).hexdigest(), res.makespan, res.total_energy
+
+
+class LargestBatch:
+    """Keeps the packed inputs of the largest ``score_reduce_batch`` call
+    the fleet coordinator makes (rows, then nodes), for phase 7.  Wraps the
+    name ``repro_torch.core.cluster`` calls; the launch count stays the
+    wrapper's own."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __enter__(self):
+        import repro_torch.core.cluster as CL
+
+        self.real = real = CL.score_reduce_batch
+        path = self.path
+
+        def recording(dev, g, n, offsets, params, **kw):
+            key = (dev.shape[0], params.shape[0])
+            if path.batch is None or key > path.batch[:2]:
+                path.batch = key + (dict(dev=dev, g=g, n=n, offsets=offsets,
+                                         params=params, **kw),)
+            return real(dev, g, n, offsets, params, **kw)
+
+        CL.score_reduce_batch = recording
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.core.cluster as CL
+
+        CL.score_reduce_batch = self.real
+
+
+def fleet_leg(cell, engine, device, *, hier, staged=True, path=None):
+    """One run of a fleet cell through the user entry points.  ``cell`` is
+    "arrivals" (``Cluster.simulate``) or "elastic" (``Cluster.open_run``
+    with resizing, a shared DecisionCache when ``staged``; the solo leg is
+    bench_fleet's pre-batching reference: per-job resize loop, no
+    COMPLETE staging, private caches, no tie-frontier sharing).  With
+    ``path`` the launch counts are set to 0 just before the run, read just
+    after and added to the main path's.  Returns (result, seconds,
+    policies, counts)."""
+    import math
+
+    from repro_torch.core import DecisionCache, ElasticConfig, bursty_stream
+    from repro_torch.core.events import EVT_ARRIVAL
+    from repro_torch.kernels import score_reduce as K
+    from repro_torch.roofline.hw import A100, H100, V100
+
+    pols = []
+    apps = [f"app{i}" for i in range(FLEET_APPS)]
+    if cell == "arrivals":
+        truth = {c.name: synth_apps(c) for c in (H100, A100, V100)}
+        cl = fleet_cluster(engine, device, truth, hier, pols, cache=True)
+        stream = bursty_stream(apps, rate=4.8, n=FLEET_JOBS, seed=7, burst=16)
+    else:
+        truth = {c.name: synth_elastic_apps(c) for c in (H100, A100, V100)}
+        kw = (dict(cache=DecisionCache(), resize_batch=True) if staged else
+              dict(cache=True, resize_batch=False, launch_share=False))
+        cl = fleet_cluster(engine, device, truth, hier, pols, **kw)
+        stream = sorted(bursty_stream(apps, rate=2.4, n=FLEET_JOBS, seed=7, burst=16),
+                        key=lambda a: a.t)
+    if path is not None:
+        K.reset_stats()
+    t0 = time.perf_counter()
+    if cell == "arrivals":
+        res = cl.simulate(stream)
+    else:
+        run = cl.open_run(apps=apps, jobs=[(a.name, a.app) for a in stream],
+                          elastic=ElasticConfig(resize=True, resize_before_backfill=True))
+        if not staged:
+            run.loop.prepare_complete = None
+        for a in stream:
+            if a.t <= 0.0:
+                run.route(a, 0.0)
+            else:
+                run.loop.queue.push(a.t, EVT_ARRIVAL, a)
+        run.loop.run()
+        res = run.finalize()
+    if device.type == "cuda":
+        torch_sync()
+    secs = time.perf_counter() - t0
+    counts = read_stats() if path is not None else None
+    if path is not None:
+        path.add(counts)
+    check(math.isfinite(res.total_energy) and res.total_energy > 0 and res.makespan > 0,
+          f"fleet {cell}: energy/makespan not finite and positive")
+    check({r.job for r in res.records} == {a.name for a in stream},
+          f"fleet {cell}: not every job ran")
+    return res, secs, pols, counts
+
+
+def torch_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def phase_fleet(device, path):
+    """Both 256-node cells: the torch engine on the card against the numpy
+    engine, hierarchical against flat dispatch, batched against solo;
+    then the arrivals cell once more under the profiler."""
+    out = {}
+    with LargestBatch(path):
+        for cell, legs in (
+            # the engines in turns (torch, vector, vector, torch), so a
+            # slow stretch of the shared host hits both
+            ("arrivals", (("torch", True, True), ("vector", True, True),
+                          ("vector", False, True), ("torch", False, True))),
+            ("elastic", (("torch", True, True), ("vector", True, True),
+                         ("torch", True, False), ("torch", False, True))),
+        ):
+            for engine, hier, staged in legs:
+                tag = (f"{cell} {engine} {'hier' if hier else 'flat'} "
+                       f"{'batched' if staged else 'solo'}")
+                res, secs, pols, counts = fleet_leg(
+                    cell, engine, device, hier=hier, staged=staged,
+                    path=path if engine == "torch" else None)
+                out[(cell, engine, hier, staged)] = (res, pols, counts)
+                served = sum(p.stage_served for p in pols)
+                rserved = sum(p.resize_stage_served for p in pols)
+                # events as bench_fleet counts them: routing decisions
+                # plus each job's launch and completion
+                print(f"  fleet_{cell}_n{FLEET_NODES} {tag}: fp={fleet_fp(res)[0]} "
+                      f"makespan={res.makespan!r} energy={res.total_energy!r} "
+                      f"seconds={secs!r} "
+                      f"events_per_s={(res.decision_events + 2 * FLEET_JOBS) / secs!r} "
+                      f"decisions={res.decision_events} resizes={res.resizes} "
+                      f"stage_served={served} resize_stage_served={rserved}")
+                print(f"    decision_phases_s={ {k: round(v, 6) for k, v in res.decision_phases.items()} }")
+                if counts is not None:
+                    for k in ("score_reduce_batch", "score_reduce_multi", "score_reduce"):
+                        c = counts[k]
+                        n = max(c["launches"], 1)
+                        print(f"    {k}: launches={c['launches']} "
+                              f"nodes_or_windows_per_launch max={c['max_windows']} "
+                              f"mean={c['windows'] / n!r} rows_per_launch "
+                              f"max={c['max_rows']} mean={c['rows'] / n!r}")
+            keys = [k for k in out if k[0] == cell]
+            fps = {k: fleet_fp(out[k][0]) for k in keys}
+            check(len(set(fps.values())) == 1,
+                  f"fleet {cell}: schedules differ across legs {fps}")
+    # each cell's own counts: ARRIVAL bursts reach score_reduce_batch and
+    # COMPLETE bursts score_reduce_multi, in both cells
+    for cell in ("arrivals", "elastic"):
+        for hier in (True, False):
+            counts = out[(cell, "torch", hier, True)][2]
+            for k in ("score_reduce_batch", "score_reduce_multi"):
+                check(counts[k]["launches"] > 0,
+                      f"{cell} cell ({'hier' if hier else 'flat'}) launched no {k}")
+    arr = out[("arrivals", "torch", True, True)]
+    check(sum(p.stage_served for p in arr[1]) > 0, "arrivals cell served no staged decision")
+    el = out[("elastic", "torch", True, True)]
+    check(sum(p.resize_stage_served for p in el[1]) > 0,
+          "elastic cell served no staged resize")
+    check(el[0].resizes > 0, "elastic cell resized nothing")
+
+    # the arrivals cell's torch run again, under the profiler: device
+    # busy and idle share of the whole fleet run
+    wall, avgs = profiled(lambda: fleet_leg("arrivals", "torch", device, hier=True))
+    dev = device_kernels(avgs)
+    busy = sum(us for _, us in dev.values()) * 1e-6
+    if busy > 0:
+        print(f"  fleet_arrivals_n{FLEET_NODES} torch hier under the profiler: "
+              f"wall_s={wall!r} device_busy_s={busy!r} idle_share={1.0 - busy / wall!r}")
+        for name, (count, us) in sorted(dev.items()):
+            print(f"    profiler device: {name[:60]} count={count} "
+                  f"us_per_launch={us / count!r}")
+    else:
+        print("  fleet run under the profiler: device busy share not measured")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: times at the main path's largest shapes
 # ---------------------------------------------------------------------------
 
 
@@ -529,9 +878,11 @@ def time_solo(device, B, batch, g_free, M, lam_f):
     )
 
 
-def time_multi(device, rows, reqs):
-    """The same three times for ``score_reduce_multi`` on one main-path
-    request list (packing and upload stay outside the timed launches)."""
+def time_packed(device, name, p):
+    """The same three times for ``score_reduce_multi`` or
+    ``score_reduce_batch`` (one kernel, one block per packed segment) on
+    packed device inputs as the path passed them; packing and upload stay
+    outside the timed launches."""
     import ctypes
 
     import torch
@@ -540,8 +891,7 @@ def time_multi(device, rows, reqs):
 
     lib = _build.library()
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    p = K.pack_windows(reqs, device)
-    W, S = p["params"].shape[0], p["dev"].shape[1]
+    (rows, S), W = p["dev"].shape, p["params"].shape[0]
     out_s = torch.empty(rows, device=device)
     out_b = torch.empty(W, dtype=torch.int32, device=device)
 
@@ -553,17 +903,21 @@ def time_multi(device, rows, reqs):
             ptr(p["dev"]), ptr(p["g"]), ptr(p["f"]), ptr(p["n"]), ptr(p["bias"]),
             ptr(p["mask"]), ptr(p["offsets"]), ptr(p["params"]), W, S,
             out_s.data_ptr(), out_b.data_ptr(), stream)
-        check(err == 0, f"raw score_reduce_multi launch error {err}")
+        check(err == 0, f"raw {name} launch error {err}")
 
     planes = 2 + (p["f"] is not None)
     cols_in = 1 + (p["bias"] is not None) + (p["mask"] is not None)
-    n_bytes = 4 * (planes * rows * S + cols_in * rows + 4 * W + W + 1) + 4 * (rows + W)
+    # each input read once (planes, columns, offsets, params), scores and
+    # one winner per segment written once
+    n_bytes = (4 * (planes * rows * S + cols_in * rows + (W + 1) + 4 * W)
+               + 4 * (rows + W))
     bms, bby = bound_ms(n_bytes, rows * (3 * S + 9))
     return dict(
-        B=rows, S=S, W=W, ms=cuda_ms(raw, 2000),
-        plain_ms=cuda_ms(lambda: K.score_reduce_multi_plain(**p), 100),
-        call_us=host_us(lambda: K.score_reduce_multi(**p), 2000),
+        B=rows, S=S, ms=cuda_ms(raw, 2000),
+        plain_ms=cuda_ms(lambda: getattr(K, name + "_plain")(**p), 20),
+        call_us=host_us(lambda: getattr(K, name)(**p), 2000),
         bound_ms=bms, bound_by=bby,
+        **{"D" if name == "score_reduce_batch" else "W": W},
     )
 
 
@@ -583,9 +937,14 @@ def profiled(fn):
 
 
 def device_kernels(avgs):
-    """{name: (count, device µs in total)} of the device-side entries."""
+    """{name: (count, device µs in total)} of the device-side entries
+    (kernels and copies).  The host operators that issued them report the
+    same device time again as their own, so only entries whose device
+    type is CUDA are kept: each device interval is counted once."""
+    from torch.autograd import DeviceType
+
     return {e.key: (e.count, e.self_device_time_total) for e in avgs
-            if e.self_device_time_total > 0}
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def profile_lines(device, path):
@@ -617,6 +976,12 @@ def profile_lines(device, path):
     print("  profiler host, per wrapper pair: " + ", ".join(
         f"{e.key}={e.self_cpu_time_total / reps!r}us" for e in top))
 
+    batch = path.batch[2]  # shares score_windows_kernel, so profiled alone
+    _, avgs = profiled(lambda: [K.score_reduce_batch(**batch) for _ in range(reps)])
+    for name, (count, us) in sorted(device_kernels(avgs).items()):
+        print(f"  profiler device, score_reduce_batch alone: {name[:60]} "
+              f"count={count} us_per_launch={us / count!r}")
+
     truth, stream = pod_truth(POD_JOBS)
     pol = timed_policy_class()(ProfiledPerfModel(truth, noise=NOISE, seed=SEED),
                                lam=LAM, tau=TAU, engine="torch", device=device,
@@ -632,17 +997,23 @@ def profile_lines(device, path):
 
 def phase_timings(device, path, diff):
     import torch
+    from repro_torch.kernels import score_reduce as K
 
     t = time_solo(device, *path.pod)
     print(f"  pod run's largest score_reduce: B={t['B']} S={t['S']} "
           f"kernel_ms={t['ms']!r} wrapper_call_us={t['call_us']!r}")
     rows = {"score_reduce": time_solo(device, *path.solo),
-            "score_reduce_multi": time_multi(device, *path.multi)}
+            "score_reduce_batch": time_packed(device, "score_reduce_batch",
+                                              path.batch[2]),
+            "score_reduce_multi": time_packed(device, "score_reduce_multi",
+                                              K.pack_windows(path.multi[1], device))}
     replaces = {"score_reduce": "src/repro/kernels/score_reduce.py:138",
+                "score_reduce_batch": "src/repro/kernels/score_reduce.py:255",
                 "score_reduce_multi": "src/repro/kernels/score_reduce.py:374"}
     kernels = []
     for name, t in rows.items():
-        print(f"  {name} at B={t['B']} S={t['S']}{' W=%d' % t['W'] if 'W' in t else ''}: "
+        extra = "".join(f" {k}={t[k]}" for k in ("D", "W") if k in t)
+        print(f"  {name} at B={t['B']} S={t['S']}{extra}: "
               f"kernel_ms={t['ms']!r} plain_ms={t['plain_ms']!r} "
               f"wrapper_call_us={t['call_us']!r} (with its D2H read) "
               f"bound_ms={t['bound_ms']!r} ({t['bound_by']})")
@@ -683,6 +1054,11 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
+    laps = {}
+
+    def lap(phase):
+        laps[phase] = round(time.perf_counter() - t_start - sum(laps.values()), 3)
+
     device = torch.device("cuda", 0)
     card = smi()
     print("== phase 1: device and build")
@@ -699,24 +1075,33 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("build_s"):
             print(f"  ptxas: {line.strip()}")
 
+    lap("1")
     print("== phase 2: kernels vs plain versions on the card")
     diff = phase_kernels(device)
     print(f"  cases={diff.cases} max_abs_err={diff.max_abs}")
+    lap("2")
 
     path = MainPath()
     print("== phase 3: main path, paper node")
     phase_paper(device, path)
+    lap("3")
     print("== phase 4: main path, elastic")
     phase_elastic(device, path)
+    lap("4")
     print("== phase 5: main path, pod scale")
     phase_pod(device, path)
+    lap("5")
+    print("== phase 6: fleet path, 256 nodes")
+    phase_fleet(device, path)
+    lap("6")
     for name, st in path.launches.items():
-        check(st["launches"] > 0, f"{name} was never launched on the main path")
+        check(st["launches"] > 0, f"{name} was never launched on the main paths")
     print(f"  main-path launches: {path.launches}")
 
-    print("== phase 6: kernel times at the main path's largest shapes")
+    print("== phase 7: kernel times at the main paths' largest shapes")
     kernels = phase_timings(device, path, diff)
-    print(f"  total_s={time.perf_counter() - t_start:.1f}")
+    lap("7")
+    print(f"  phase_seconds={laps} total_s={time.perf_counter() - t_start:.1f}")
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Carry state across from the reference package as plain data.
 
 A scheduler has no weights; what both packages must share to be compared
-is the ground-truth profile table the simulator reads and the Phase-I
-estimates the decision scores.  The reference's objects export to plain
-dicts and numpy arrays (``dataclasses.asdict`` of a ``JobProfile``; per-mode
-columns of a ``JobSpec``), and these functions turn that data into this
-package's types, value for value.  Nothing here imports the reference.
+is the ground-truth profile table the simulator reads, the Phase-I
+estimates the decision scores and, for a fleet, the arrival stream.  The
+reference's objects export to plain dicts and numpy arrays
+(``dataclasses.asdict`` of a ``JobProfile``; per-mode columns of a
+``JobSpec``; ``(name, app, t)`` rows of a stream), and these functions
+turn that data into this package's types, value for value.  Nothing here
+imports the reference.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 
+from repro_torch.core.arrivals import Arrival
 from repro_torch.core.types import JobProfile, JobSpec, ModeEstimate
 
 _CURVES = ("runtime", "busy_power", "dram_util", "freq_time", "freq_power")
@@ -60,3 +63,11 @@ def specs_from_arrays(table: Sequence[Mapping[str, Any]]) -> List[JobSpec]:
         )
         out.append(JobSpec(name=str(row["name"]), modes=modes))
     return out
+
+
+def arrivals_from_tuples(rows: Sequence[Sequence[Any]]) -> List[Arrival]:
+    """``[(name, app, t), ...]`` -> ``[Arrival, ...]`` in the rows' order
+    (``Cluster.simulate`` keeps same-instant arrivals in submission
+    order, so the order is part of the stream)."""
+    return [Arrival(t=float(t), name=str(name), app=str(app))
+            for name, app, t in rows]

@@ -11,13 +11,13 @@ deadlock guard forces the best non-empty action when the node is
 completely idle.
 
 Scoring backends (``engine=``):
-  * ``"vector"`` (default) — the batched numpy engine
+  * ``"vector"`` — the batched numpy engine
     (``repro_torch.core.engine``): one vector expression scores the whole
     candidate space, bitmask replay checks placement; the decision stays
     lightweight at pod scale (M=16, K=4, 17-job windows).
-  * ``"torch"`` — same cached enumeration, but the Eq. (1) score
-    reduction and masked argmin run through the hand-written CUDA kernels
-    (``repro_torch.kernels.score_reduce``) on ``device`` (default
+  * ``"torch"`` (default) — same cached enumeration, but the Eq. (1)
+    score reduction and masked argmin run through the hand-written CUDA
+    kernels (``repro_torch.kernels.score_reduce``) on ``device`` (default
     ``"cuda"``; ``device="cpu"`` runs their plain PyTorch versions).  It
     takes the place of the reference's ``"jax"`` engine and gives the same
     schedules.
@@ -45,10 +45,17 @@ Beyond-paper options (all default-off; §Perf ablations):
     COMPLETE events: running jobs may be checkpointed and relaunched at a
     now-better count, with the candidates scored through the same batched
     Eq. (1) path plus a switch-cost bias.
+  * forecast plane — with a ``ForecastConfig`` (repro_torch.core.forecast)
+    the entry points call ``attach_forecast``: the perf model becomes an
+    online-refined posterior (τ-filtered specs re-derive when it bumps
+    its ``version``) and the resize switch-cost bias scales with
+    forecasted queue pressure.  Never attached on the default path.
 
-Twin of ``repro.core.ecosched``.  The forecast plane and the fleet
-coordinator's staging producers are not ported yet; the staged-result
-consumption guard of ``_best_torch`` is kept for the fleet port.
+A fleet coordinator (``repro_torch.core.cluster.ClusterRun``) may stage
+a node's decision: ``stage_score``/``stage_round1``/``stage_round2``
+and ``stage_resize``/``stage_resize_results`` park the argmins of one
+cross-node kernel launch, consumed only when the decision state still
+matches.  Twin of ``repro.core.ecosched``.
 """
 from __future__ import annotations
 
@@ -80,7 +87,7 @@ class EcoSched:
         exact_limit: int = 50_000,
         beam: int = 64,
         lookahead: float = 0.0,
-        engine: str = "vector",
+        engine: str = "torch",
         cache=True,
         resize_batch: bool = True,
         launch_share: bool = True,
@@ -165,11 +172,18 @@ class EcoSched:
         # ``resize_batch=False`` keeps the per-job loop (the measured
         # pre-batching baseline; schedules are bit-identical either way).
         self.resize_batch = resize_batch
+        self._staged_resize: Optional[dict] = None
+        self.resize_stage_served = 0
         # scratch free-unit mask for the resize hot path (_freed_view):
         # reused across candidates instead of allocating a fresh list +
         # per-unit Python loop per candidate per COMPLETE event
         self._free_scratch: Optional[np.ndarray] = None
         self._pm_version = 0
+        # forecast plane (repro_torch.core.forecast): attached by the
+        # simulation entry points when a ForecastConfig is enabled; None
+        # otherwise
+        self._plane = None
+        self._node = ""
 
     def name(self) -> str:
         return "ecosched" if not self.lookahead else "ecosched+lookahead"
@@ -187,6 +201,16 @@ class EcoSched:
         m = s["decision_misses"]
         s["event_hit_rate"] = h / (h + m) if h + m else 0.0
         return s
+
+    def attach_forecast(self, plane, node: str = "") -> None:
+        """Wire the forecast plane (repro_torch.core.forecast.ForecastPlane):
+        wraps the perf model with the plane's refined posterior (online
+        refinement) and conditions the resize switch-cost bias on
+        forecasted queue pressure.  Called by the simulation entry points
+        before any event fires."""
+        self._plane = plane
+        self._node = node
+        self.perf_model = plane.refined_model(node, self.perf_model)
 
     def _spec(self, job: str) -> JobSpec:
         """τ-filtered Phase-I spec, computed once per job and reused across
@@ -362,6 +386,88 @@ class EcoSched:
             getattr(self.perf_model, "version", 0),
         )
 
+    def stage_score(self, view: NodeView, waiting: Sequence[str]):
+        """Phase 1 of a fleet-coordinated decision: replicate
+        ``on_event``'s window/enumeration prefix (same caches, same spec
+        tokens — so the imminent solo invocation behaves bit-identically
+        whether or not staging happened) and return the kernel request
+        dict for ``score_reduce_batch`` (the numpy request shape of
+        ``pack_windows``).  Returns None when this event would not launch
+        a solo kernel anyway (non-torch engine, empty or un-placeable
+        window, launch-memo hit, overflow fallback)."""
+        self._staged = None
+        if self.engine != "torch":
+            return None
+        window_jobs = list(waiting[: self.window] if self.window else waiting)
+        if not window_jobs or view.free_domains <= 0 or view.free_units <= 0:
+            return None
+        specs = [self._spec(j) for j in window_jobs]
+        specs = [s for s in specs if s.modes]
+        if not specs:
+            return None
+        if self._cache is not None and view.domain_jobs:
+            toks = tuple(self._cache.spec_token(s) for s in specs)
+            rest = (
+                _mask_of(view.free_map),
+                tuple(view.domain_jobs),
+                bool(view.running),
+                view.total_units,
+                view.dead_units,
+                view.domains,
+            )
+            if self._cache.launch((toks,) + rest) is not None:
+                return None  # on_event replays the memo; no kernel runs
+            if self.launch_share:
+                order = DecisionCache.canonical_order(toks)
+                ckey = (
+                    toks if order is None else tuple(toks[i] for i in order),
+                ) + rest
+                if self._cache.frontier(ckey) is not None:
+                    return None  # on_event re-breaks the frontier tie
+        try:
+            batch = self._enumerate(specs, view)
+        except OverflowError:
+            return None  # on_event falls back to the python reference
+        # the solo path's inputs before its upload: float32 planes from
+        # padded_cols/padded_f, and the float64 bias that pack_windows
+        # rounds to float32 exactly as ``_bias`` does
+        dev, g, n = batch.padded_cols()
+        fcol = batch.padded_f() if self.lam_f else None
+        bias = (self.lookahead * batch.spread) if self.lookahead else None
+        req = dict(
+            dev=dev, g=g, n=n, lam=self.lam, g_free=view.free_units,
+            M=view.alive_units, f=fcol, lam_f=self.lam_f, bias=bias,
+        )
+        self._staged = {
+            "sig": self._stage_sig(view, specs),
+            "batch": batch,
+            "req": req,
+            "guard": not view.running,
+            "best": None,
+        }
+        return req
+
+    def stage_round1(self, best: int):
+        """Phase 2: record the batched round-1 argmin.  Returns the
+        round-2 masked request when the idle-node deadlock guard needs one
+        (the coordinator batches those too), else None."""
+        st = self._staged
+        if st is None:
+            return None
+        st["best"] = int(best)
+        if best == 0 and st["guard"]:
+            return dict(st["req"], mask=st["batch"].n_jobs > 0)
+        return None
+
+    def stage_round2(self, best: int) -> None:
+        st = self._staged
+        if st is not None and best >= 0:
+            st["best"] = int(best)
+            st["nonempty"] = True  # guard re-score chose this row
+
+    def stage_drop(self) -> None:
+        self._staged = None
+
     def _bias(self, bias: np.ndarray) -> torch.Tensor:
         """A float64 host bias column as the kernels' float32 device input
         (rounded as the reference rounds it)."""
@@ -447,11 +553,30 @@ class EcoSched:
 
         With ``resize_batch`` (the default for the array engines) every
         candidate window is scored in ONE kernel/vector reduction instead
-        of one per running job; schedules are bit-identical either way.
+        of one per running job, and a fleet coordinator may have pre-run
+        the whole reduction inside a cross-node COMPLETE-burst launch
+        (``stage_resize``) — consumed only on an exact decision-state
+        signature match, so schedules are bit-identical either way.
         """
+        staged, self._staged_resize = self._staged_resize, None
         if view.free_units <= 0 or not view.running:
             return []
-        switch_cost = cfg.switch_cost
+        # forecast-conditioned switch cost: under burst risk / queue
+        # pressure the freed units are about to be needed, so changing a
+        # count must clear a larger margin (identical to cfg.switch_cost
+        # when no plane is attached)
+        switch_cost = (
+            cfg.switch_cost
+            if self._plane is None
+            else self._plane.resize_switch_cost(self._node, cfg.switch_cost, view.t)
+        )
+        if (
+            staged is not None
+            and staged["bests"] is not None
+            and staged["sig"] == self._resize_sig(view, switch_cost, cfg)
+        ):
+            self.resize_stage_served += 1
+            return self._pick_resize(staged["cands"], staged["bests"], cfg)
         if not self.resize_batch or self.engine == "python":
             return self._propose_solo(view, frac_of, cfg, switch_cost)
         cands = self._resize_candidates(view, frac_of, cfg)
@@ -509,8 +634,8 @@ class EcoSched:
         return [best[1]] if best is not None else []
 
     def _resize_candidates(self, view: NodeView, frac_of, cfg) -> List[dict]:
-        """The guard prefix of the per-job loop, for the batched path:
-        collect every eligible running job's candidate
+        """The guard prefix of the per-job loop, shared by the batched and
+        staged paths: collect every eligible running job's candidate
         window (same guards, same order) with its enumeration done but the
         scoring deferred."""
         overhead = cfg.ckpt_time + cfg.restart_time
@@ -600,25 +725,105 @@ class EcoSched:
                 best = (gain, Launch(job=rj.job, g=m.g, f=m.f))
         return [best[1]] if best is not None else []
 
-    def _freed_view(self, view: NodeView, rj: RunningJob) -> NodeView:
+    # -- COMPLETE-burst staging --------------------------------------------
+
+    def _resize_sig(self, view: NodeView, switch_cost: float, cfg) -> Tuple:
+        """Everything the resize decision is a pure function of: the node
+        state the candidate windows were built from, every running job's
+        mode/timing fields (candidacy guards and gain predictions read
+        them), the effective switch cost (forecast planes condition it on
+        mutable queue-pressure state), the cfg knobs, and the perf-model
+        version (spec tables).  A staged result is consumed only on an
+        exact match, so any drift between the predicted post-COMPLETE
+        state and the real one falls back to the solo recomputation."""
+        return (
+            view.t,
+            _mask_of(view.free_map),
+            tuple(view.domain_jobs),
+            view.total_units,
+            view.dead_units,
+            view.domains,
+            view.free_units,
+            tuple(
+                (rj.job, rj.g, rj.f, rj.end, rj.start, rj.restart,
+                 rj.frac0, rj.preempted, rj.failed, rj.domain,
+                 tuple(rj.units))
+                for rj in view.running
+            ),
+            switch_cost,
+            (cfg.ckpt_time, cfg.restart_time, cfg.min_gain_s,
+             cfg.switch_cost),
+            getattr(self.perf_model, "version", 0),
+        )
+
+    def stage_resize(self, view: NodeView, *, frac_of, cfg):
+        """Phase 1 of a fleet-coordinated COMPLETE burst: build this
+        node's resize candidate windows against the *predicted*
+        post-completion view and return their kernel requests for the
+        coordinator's single cross-node ``score_reduce_multi`` launch.
+        Returns None when the imminent solo pass would not launch kernels
+        anyway (non-torch engine, batching off, no eligible candidates)."""
+        self._staged_resize = None
+        if self.engine != "torch" or not self.resize_batch:
+            return None
+        if view.free_units <= 0 or not view.running:
+            return None
+        switch_cost = (
+            cfg.switch_cost
+            if self._plane is None
+            else self._plane.resize_switch_cost(self._node, cfg.switch_cost, view.t)
+        )
+        cands = self._resize_candidates(view, frac_of, cfg)
+        if not cands:
+            return None
+        reqs = self._resize_requests(cands, switch_cost)
+        self._staged_resize = {
+            "sig": self._resize_sig(view, switch_cost, cfg),
+            "cands": cands,
+            "bests": None,
+        }
+        return reqs
+
+    def stage_resize_results(self, bests: Sequence[int]) -> None:
+        """Phase 2: park the batched per-window argmins for consumption
+        by the next ``propose_resizes`` call (signature-guarded)."""
+        st = self._staged_resize
+        if st is not None:
+            st["bests"] = [int(b) for b in bests]
+
+    def stage_resize_drop(self) -> None:
+        self._staged_resize = None
+
+    def _freed_view(
+        self, view: NodeView, rj: RunningJob, t: Optional[float] = None,
+        scratch: bool = True,
+    ) -> NodeView:
         """Hypothetical node state with ``rj``'s units and home domain
-        freed — what the node looks like the instant the resize relaunches.
-        The returned ``free_map`` aliases a per-policy numpy buffer and is
-        valid only until the next call — candidates are built and
-        enumerated one at a time."""
-        nu = view.total_units
-        buf = self._free_scratch
-        if buf is None or buf.shape[0] < nu:
-            buf = self._free_scratch = np.empty(nu, dtype=bool)
-        free_map = buf[:nu]
-        free_map[:] = view.free_map
-        for u in rj.units:
-            free_map[u] = True
+        freed — what the node looks like the instant the resize relaunches
+        (or, with ``t``, the predicted post-COMPLETE state a burst
+        coordinator stages against).  With ``scratch`` (the resize hot
+        path) the returned ``free_map`` aliases a per-policy numpy buffer
+        and is valid only until the next scratch call — candidates are
+        built and enumerated one at a time; pass ``scratch=False`` for a
+        view that must outlive the loop."""
+        if scratch:
+            nu = view.total_units
+            buf = self._free_scratch
+            if buf is None or buf.shape[0] < nu:
+                buf = self._free_scratch = np.empty(nu, dtype=bool)
+            free_map = buf[:nu]
+            free_map[:] = view.free_map
+            for u in rj.units:
+                free_map[u] = True
+        else:
+            free_map = list(view.free_map)
+            for u in rj.units:
+                free_map[u] = True
         occ = list(view.domain_jobs) if view.domain_jobs else [0] * view.domains
         if occ and 0 <= rj.domain < len(occ) and occ[rj.domain] > 0:
             occ[rj.domain] -= 1
         return NodeView(
-            t=view.t,
+            t=view.t if t is None else t,
             total_units=view.total_units,
             domains=view.domains,
             free_units=view.free_units + rj.g,

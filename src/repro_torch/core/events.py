@@ -1,10 +1,11 @@
 """Unified event-queue substrate.
 
-One typed event heap + one event loop over ``NodeSim`` accounting.
-Twin of ``repro.core.events``: the single-node ``simulate()``
-(repro_torch.core.simulator) drives it here; the cluster-scale hooks
-(arrival routing, array-state bookkeeping, migration candidate
-selection) are kept so the fleet port plugs into the same loop.
+One typed event heap + one event loop over ``NodeSim`` accounting,
+shared by the single-node ``simulate()`` (repro_torch.core.simulator)
+and the cluster-scale ``Cluster.simulate()`` (repro_torch.core.cluster),
+which differ only in the hooks they plug in (arrival routing, array-state
+bookkeeping, migration candidate selection).  Twin of
+``repro.core.events``.
 
 Event kinds, in tie-break order at one instant:
 

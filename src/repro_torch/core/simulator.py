@@ -75,8 +75,8 @@ class NodeSim:
     """Single-node simulation state: placement, running set, waiting queue,
     and exact piecewise-constant energy integration.
 
-    The owner (the ``EventLoop`` built by ``simulate``) runs the event
-    heap and calls
+    The owner (the ``EventLoop`` built by ``simulate`` or
+    ``Cluster.simulate``) runs the event heap and calls
     ``advance``/``arrive``/``complete``/``invoke_policy`` (plus the
     preemption/migration hooks when elastic); this object never sees the
     heap, so the same accounting serves every entry point.
@@ -494,10 +494,13 @@ def simulate(
     checkpoint-restart and (with an elastic-aware policy) GPU resizing on
     completion events; ``None`` reproduces the static loop bit-exactly.
 
-    ``forecast`` — the reference's ``ForecastConfig``.  The forecast plane
-    is not ported yet, so an enabled config raises ``NotImplementedError``
-    rather than being ignored; ``None`` or an all-off config runs the
-    plane-free loop, exactly as in the reference.
+    ``forecast`` — optional ``ForecastConfig`` (repro_torch.core.forecast):
+    on a single node this wires online perf-model refinement (COMPLETE
+    events feed the posterior, the policy's estimates shrink toward
+    observed runtimes) and burst-conditioned resize bias; queueing wait
+    forecasts and migration are cluster-level and stay inert here.
+    ``None`` (or an all-off config) never builds a plane — bit-identical
+    schedules.
 
     ``faults`` — optional ``FaultConfig`` (repro_torch.core.faults): seeded
     node failures, job crashes, and stragglers with checkpoint-rollback
@@ -525,11 +528,20 @@ def simulate(
     sim = NodeSim(node, truth, policy, slowdown_model=slowdown_model,
                   elastic=elastic, faults=faults, fault_injector=injector)
 
+    # forecast plane: never built on the default path, so forecast=None
+    # rides the exact plane-free loop
+    plane = None
     if forecast is not None and forecast.enabled:
-        raise NotImplementedError("the forecast plane is not ported yet")
+        from repro_torch.core.forecast import ForecastPlane
+
+        plane = ForecastPlane(forecast, {"": node.units}, elastic=elastic)
+        if hasattr(policy, "attach_forecast"):
+            policy.attach_forecast(plane, "")
 
     def arrive(job: str, t: float) -> str:
         sim.arrive(job, t)
+        if plane is not None:
+            plane.on_arrival(t)
         return ""
 
     loop = EventLoop(
@@ -540,11 +552,15 @@ def simulate(
         elastic=elastic,
         faults=faults,
         fault_injector=injector,
+        on_launch=(plane.on_launch if plane is not None else None),
+        on_complete=(plane.on_complete if plane is not None else None),
     )
     for at, job in stream:
         if at <= 0.0:
             sim.arrival_of[job] = 0.0
             sim.waiting.append(job)
+            if plane is not None:
+                plane.on_arrival(0.0)
         else:
             loop.queue.push(at, EVT_ARRIVAL, job)
     loop.run()
@@ -553,4 +569,7 @@ def simulate(
         raise RuntimeError(
             f"policy {policy.name()} finished with waiting jobs {sim.waiting}"
         )
-    return sim.result(charge_profiling=charge_profiling)
+    result = sim.result(charge_profiling=charge_profiling)
+    if plane is not None:
+        result.forecast = plane.summary()
+    return result

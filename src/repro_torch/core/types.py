@@ -5,8 +5,7 @@ simulator and the Oracle see *ground truth* (``JobProfile``).  Keeping the
 two separated is what makes the online-vs-oracle comparison honest.
 
 Units ("GPUs" in the paper) are the node's allocation granularity: one GPU
-on a 4-GPU node.  Twin of ``repro.core.types`` without the cluster rollup,
-which waits for the fleet port.
+on a 4-GPU node.  Twin of ``repro.core.types``.
 """
 from __future__ import annotations
 
@@ -224,8 +223,9 @@ class ScheduleResult:
     freq_history: Dict[str, List[Tuple[float, int, int]]] = field(
         default_factory=dict
     )  # job -> [(relaunch t, f_old, f_new)] — DVFS retunes across segments
-    # forecast-plane observability (kept for shape parity with the
-    # reference result; always empty until the forecast plane is ported)
+    # forecast-plane observability (repro_torch.core.forecast; empty when
+    # the run had no plane): final rate estimates, burst-gate state/flips,
+    # migrations vetoed by the risk penalty, posterior feed counts
     forecast: Dict[str, float] = field(default_factory=dict)
     # fault-plane accounting (repro_torch.core.faults; all zero without faults)
     job_crashes: int = 0  # JOB_FAIL kills on this node
@@ -251,3 +251,113 @@ class ScheduleResult:
     def edp(self) -> float:
         return self.total_energy * self.makespan
 
+
+@dataclass
+class ClusterResult:
+    """Rollup of per-node ``ScheduleResult``s for one cluster run.
+
+    Each node integrates its own idle energy up to its *local* makespan
+    (last completion on that node); ``tail_idle_energy`` is the extra idle
+    drawn by nodes that drain early, up to the cluster makespan — so
+    Σ busy + Σ idle + tail covers exactly Σ_n M_n · makespan unit-seconds.
+    """
+
+    policy: str
+    per_node: Dict[str, ScheduleResult]
+    makespan: float
+    tail_idle_energy: float = 0.0
+    # forecast-plane observability (repro_torch.core.forecast); empty without one
+    forecast: Dict[str, float] = field(default_factory=dict)
+    # fleet fragmentation gauge: time_avg / peak / final
+    # unusable-GPU fraction given the pending mix, à la Lettich et al.
+    fragmentation: Dict[str, float] = field(default_factory=dict)
+    # per-phase decision wall-clock breakdown: "dispatch"
+    # (routing), "launch" (launch scoring inside on_event), "resize"
+    # (elastic resize phase), "migrate" (migration phase), "stage"
+    # (cross-node batched kernel staging)
+    decision_phases: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def busy_energy(self) -> float:
+        return sum(r.busy_energy for r in self.per_node.values())
+
+    @property
+    def idle_energy(self) -> float:
+        return (
+            sum(r.idle_energy for r in self.per_node.values())
+            + self.tail_idle_energy
+        )
+
+    @property
+    def profiling_energy(self) -> float:
+        return sum(r.profiling_energy for r in self.per_node.values())
+
+    @property
+    def total_energy(self) -> float:
+        return self.busy_energy + self.idle_energy + self.profiling_energy
+
+    @property
+    def edp(self) -> float:
+        return self.total_energy * self.makespan
+
+    @property
+    def decision_time_s(self) -> float:
+        return sum(r.decision_time_s for r in self.per_node.values())
+
+    @property
+    def decision_events(self) -> int:
+        return sum(r.decision_events for r in self.per_node.values())
+
+    @property
+    def preemptions(self) -> int:
+        return sum(r.preemptions for r in self.per_node.values())
+
+    @property
+    def migrations(self) -> int:
+        """Completed migrations (arrivals on the receiving node)."""
+        return sum(r.migrations_in for r in self.per_node.values())
+
+    @property
+    def resizes(self) -> int:
+        return sum(r.resizes for r in self.per_node.values())
+
+    @property
+    def retunes(self) -> int:
+        return sum(r.retunes for r in self.per_node.values())
+
+    @property
+    def ckpt_energy(self) -> float:
+        return sum(r.ckpt_energy for r in self.per_node.values())
+
+    @property
+    def job_crashes(self) -> int:
+        return sum(r.job_crashes for r in self.per_node.values())
+
+    @property
+    def node_failures(self) -> int:
+        return sum(r.node_failures for r in self.per_node.values())
+
+    @property
+    def fault_kills(self) -> int:
+        return sum(r.fault_kills for r in self.per_node.values())
+
+    @property
+    def fault_retries(self) -> int:
+        return sum(r.fault_retries for r in self.per_node.values())
+
+    @property
+    def lost_jobs(self) -> List[str]:
+        return sorted(
+            j for r in self.per_node.values() for j in r.lost_jobs
+        )
+
+    @property
+    def records(self) -> List[JobRecord]:
+        out = [rec for r in self.per_node.values() for rec in r.records]
+        out.sort(key=lambda rec: (rec.start, rec.job))
+        return out
+
+    @property
+    def mean_wait(self) -> float:
+        recs = self.records
+        return sum(r.wait for r in recs) / len(recs) if recs else 0.0

@@ -40,6 +40,7 @@ _SIGNATURES = {
     # scores, bmin, btot, bidx, best, stream
     "score_reduce_launch": [_P] * 6 + [_I, _I] + [_F] * 4 + [_P] * 6,
     # dev, g, f, n, bias, mask, offsets, params, W, S, scores, best, stream
+    # (score_reduce_multi and score_reduce_batch)
     "score_reduce_multi_launch": [_P] * 8 + [_I, _I] + [_P] * 3,
 }
 

@@ -3,14 +3,21 @@
 // Replaces the Pallas kernels of src/repro/kernels/score_reduce.py:
 //   * score_reduce        (_kernel via _reduce_jit, pallas_call at :138, plus
 //                          the jnp _combine at :103)
+//   * score_reduce_batch  (_kernel_batch via _reduce_batch_jit, pallas_call
+//                          at :255, plus the vmapped jnp _combine at :273)
 //   * score_reduce_multi  (_kernel_multi via _reduce_multi_jit, pallas_call at
 //                          :374, plus the jnp scatter-min at :387-399)
 //
-// What bounds it on this card: neither bytes nor operations.  A decision
-// sends 10^2-10^4 candidate rows of S <= 4 slots (a few hundred KB at most,
-// well under a microsecond of HBM time at 3.35 TB/s, and ~10 flops a row), so
-// the floor is launch latency: two launches for score_reduce, one for the
-// multi-window form, and the one int the host reads back for its decision.
+// What bounds it on this card: neither bytes nor operations.  A call
+// sends a few to a few thousand candidate rows of S <= 8 slots (on the
+// main paths of chip_smoke.py at most 1321 rows in one score_reduce launch,
+// and at most 16 nodes / 42 rows in one score_reduce_batch launch of the
+// 256-node fleet cells), a few hundred KB at most: well under a
+// microsecond of HBM time at 3.35 TB/s, and ~10 flops a row.  So the floor
+// is launch latency: two launches for score_reduce, one for each packed
+// form, and the ints the host reads back for its decisions.  The batch
+// form's own bound is bytes: sum_k B_k * (2S, or 3S with f, + 3) * 4 read
+// and sum_k B_k * 4 written.
 //
 // What the design does about it: it keeps the work to the fewest launches
 // that stay deterministic without float atomics.  score_reduce is one thread
@@ -18,11 +25,17 @@
 // max sum g, min row) triple per block through warp shuffles and shared
 // memory) and a single-block pass 2 that combines the triples with the same
 // lexicographic compare; that compare is a total order on distinct rows, so
-// the winner does not depend on reduction order.  score_reduce_multi gives
-// each packed window one block that walks its contiguous row range with a
-// strided loop, which replaces the reference's scatter-min and needs no
-// second pass.  Both use the same row function, so every window of the
-// multi form is bitwise equal to a solo call on it.
+// the winner does not depend on reduction order.  score_reduce_batch and
+// score_reduce_multi share one single-pass kernel over segments packed on
+// the row axis (int32 offsets, one [lam, g_free, M, lam_f] params row per
+// segment): each node of the batch form, or window of the multi form, gets
+// one block that walks its contiguous row range with a strided loop and
+// combines with the same compare.  That replaces the reference's padded
+// (D, B, S) grid and its scatter-min, needs no second pass and no scratch,
+// and stays correct for a node of any size (a 50,000-row node is one block
+// looping 196 times; the fleet path's nodes fit one block's first step).
+// All use the same row function and compare, so every node or window is
+// bitwise equal to a solo call on it.
 //
 // Numerics: each row sums its S slots left to right in float32 and applies
 // the reference's operation order
@@ -212,9 +225,10 @@ int score_reduce_launch(const void* dev, const void* g, const void* f,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Windows packed on the row axis: window w owns rows [offsets[w],
+// Segments packed on the row axis (the windows of score_reduce_multi, the
+// nodes of score_reduce_batch): segment w owns rows [offsets[w],
 // offsets[w+1]) and its [lam, g_free, M, lam_f] row params[4w:4w+4].
-// scores (R,), best (W,) window-local rows.
+// scores (R,), best (W,) segment-local rows.
 int score_reduce_multi_launch(const void* dev, const void* g, const void* f,
                               const void* n, const void* bias,
                               const void* mask, const void* offsets,

@@ -12,6 +12,12 @@ with +inf where ``mask`` is 0, followed by the argmin under EcoSched's
 tie-break: lowest score, then largest total unit count, then earliest
 row; -1 when no row is feasible.
 
+``score_reduce_batch`` reduces many nodes' blocks in one launch (the
+fleet path's same-instant bursts) and ``score_reduce_multi`` many small
+windows; both take the rows of all their nodes or windows packed on the
+row axis (``pack_windows``), and each node's or window's result is
+bitwise that of a solo ``score_reduce`` on its rows.
+
 Each function has two versions here.  On a CUDA tensor the wrapper
 launches the hand-written kernel of ``csrc/score_reduce.cu`` (built at
 first use by ``_build``) or raises; it never falls back.  On a CPU tensor
@@ -42,15 +48,20 @@ class KernelStats:
     launches: int = 0
     rows: int = 0
     max_rows: int = 0
+    windows: int = 0  # nodes or windows reduced (1 per solo launch)
+    max_windows: int = 0
 
-    def add(self, rows: int) -> None:
+    def add(self, rows: int, windows: int = 1) -> None:
         self.launches += 1
         self.rows += rows
         self.max_rows = max(self.max_rows, rows)
+        self.windows += windows
+        self.max_windows = max(self.max_windows, windows)
 
 
 STATS: Dict[str, KernelStats] = {
     "score_reduce": KernelStats(),
+    "score_reduce_batch": KernelStats(),
     "score_reduce_multi": KernelStats(),
 }
 
@@ -170,6 +181,30 @@ def score_reduce_multi_plain(dev, g, n, offsets, params, *, f=None,
     return scores, bests
 
 
+def score_reduce_batch_plain(dev, g, n, offsets, params, *, f=None,
+                             bias=None, mask=None
+                             ) -> Tuple[torch.Tensor, List[int]]:
+    """Plain PyTorch version of :func:`score_reduce_batch`: one solo
+    reduction per node, each with its own params row."""
+    _check_block(dev, g, n, f, bias, mask)
+    off, D = _check_windows(offsets, params, dev)
+    bounds = off.tolist()
+    parts, bests = [], []
+    for d in range(D):
+        rows = slice(bounds[d], bounds[d + 1])
+        p = params[d]
+        s, tot = _row_scores_plain(
+            dev[rows], g[rows], None if f is None else f[rows], n[rows],
+            None if bias is None else bias[rows],
+            None if mask is None else mask[rows], p[0], p[1], p[2], p[3],
+        )
+        parts.append(s)
+        bests.append(_pick_plain(s, tot))
+    if not parts:
+        return torch.empty(0, dtype=torch.float32, device=dev.device), []
+    return torch.cat(parts), bests
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: the CUDA kernel on a CUDA tensor, the plain version on the CPU
 # ---------------------------------------------------------------------------
@@ -229,6 +264,29 @@ def _check_windows(offsets, params, dev) -> Tuple[torch.Tensor, int]:
     return offsets, W
 
 
+def _launch_segments(name, dev, g, n, offsets, params, f, bias, mask):
+    """The single-pass kernel shared by :func:`score_reduce_multi` and
+    :func:`score_reduce_batch`: one block per packed segment (window or
+    node) of any size.  Counts the launch under ``name``."""
+    R, S = dev.shape
+    W = params.shape[0]
+    scores = torch.empty(R, dtype=torch.float32, device=dev.device)
+    if W == 0:
+        return scores, []
+    from repro_torch.kernels._build import library
+
+    best = torch.empty(W, dtype=torch.int32, device=dev.device)
+    stream = torch.cuda.current_stream(dev.device).cuda_stream
+    err = library().score_reduce_multi_launch(
+        _ptr(dev), _ptr(g), _ptr(f), _ptr(n), _ptr(bias), _ptr(mask),
+        _ptr(offsets), _ptr(params), W, S, _ptr(scores), _ptr(best),
+        ctypes.c_void_p(stream),
+    )
+    _raise_on(err, f"{name} launch")
+    STATS[name].add(R, W)
+    return scores, best.tolist()
+
+
 def score_reduce_multi(dev, g, n, offsets, params, *, f=None, bias=None,
                        mask=None) -> Tuple[torch.Tensor, List[int]]:
     """Reduce many candidate windows packed on the row axis in one launch.
@@ -242,30 +300,39 @@ def score_reduce_multi(dev, g, n, offsets, params, *, f=None, bias=None,
     window).  :func:`pack_windows` builds the arguments from request
     dicts.
     """
-    R, S = _check_block(dev, g, n, f, bias, mask)
-    _, W = _check_windows(offsets, params, dev)
+    _check_block(dev, g, n, f, bias, mask)
+    _check_windows(offsets, params, dev)
     if _device_kind(dev) == "cpu":
         return score_reduce_multi_plain(dev, g, n, offsets, params, f=f,
                                         bias=bias, mask=mask)
-    scores = torch.empty(R, dtype=torch.float32, device=dev.device)
-    if W == 0:
-        return scores, []
-    from repro_torch.kernels._build import library
+    return _launch_segments("score_reduce_multi", dev, g, n, offsets, params,
+                            f, bias, mask)
 
-    best = torch.empty(W, dtype=torch.int32, device=dev.device)
-    stream = torch.cuda.current_stream(dev.device).cuda_stream
-    err = library().score_reduce_multi_launch(
-        _ptr(dev), _ptr(g), _ptr(f), _ptr(n), _ptr(bias), _ptr(mask),
-        _ptr(offsets), _ptr(params), W, S, _ptr(scores), _ptr(best),
-        ctypes.c_void_p(stream),
-    )
-    _raise_on(err, "score_reduce_multi launch")
-    STATS["score_reduce_multi"].add(R)
-    return scores, best.tolist()
+
+def score_reduce_batch(dev, g, n, offsets, params, *, f=None, bias=None,
+                       mask=None) -> Tuple[torch.Tensor, List[int]]:
+    """Reduce many nodes' candidate blocks in one launch.
+
+    The arguments are :func:`score_reduce_multi`'s (``pack_windows``
+    builds them): node ``d`` owns rows ``offsets[d]:offsets[d+1]`` and
+    scores with ``params[d] = [λ, G_free, M, λ_f]``.  The kernel gives
+    each node one block that loops over its rows, so no node size has to
+    be known ahead.  Returns (scores (R,), one node-local winning row per
+    node, -1 for an empty or all-infeasible node), each node bitwise a
+    solo :func:`score_reduce`.
+    """
+    _check_block(dev, g, n, f, bias, mask)
+    _check_windows(offsets, params, dev)
+    if _device_kind(dev) == "cpu":
+        return score_reduce_batch_plain(dev, g, n, offsets, params, f=f,
+                                        bias=bias, mask=mask)
+    return _launch_segments("score_reduce_batch", dev, g, n, offsets, params,
+                            f, bias, mask)
 
 
 def pack_windows(reqs: Sequence[Dict[str, Any]], device) -> Dict[str, Any]:
-    """Pack request dicts into :func:`score_reduce_multi`'s arguments on
+    """Pack request dicts into :func:`score_reduce_multi`'s (and
+    :func:`score_reduce_batch`'s) arguments on
     ``device`` — the reference's request shape: numpy ``dev``/``g`` (B, S),
     ``n`` (B,), scalars ``lam``/``g_free``/``M``, optional ``f``/``lam_f``/
     ``bias``/``mask``.  Windows concatenate on the row axis, zero-padded

@@ -165,3 +165,25 @@ def test_torch_engine_needs_a_device(monkeypatch):
     assert pol.device.type == "cpu"
     with pytest.raises(ValueError):
         EcoSched(ProfiledPerfModel(truth), engine="jax")
+
+
+def test_default_policy_runs_on_the_card_or_raises(monkeypatch):
+    """``EcoSched(pm)`` with no engine is the torch engine on ``cuda``:
+    without a CUDA device it raises; ``device="cpu"`` runs the kernels'
+    plain versions and gives the numpy engine's schedule."""
+    from repro_torch.core import Node, simulate
+
+    truth = PC.build_system("h100")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EcoSched(ProfiledPerfModel(truth))
+    pol = EcoSched(ProfiledPerfModel(truth, noise=0.02, seed=1), device="cpu")
+    assert pol.engine == "torch" and pol.device.type == "cpu"
+    out = []
+    for p in (pol, EcoSched(ProfiledPerfModel(truth, noise=0.02, seed=1),
+                            engine="vector")):
+        r = simulate(p, Node(4, 2, PC.idle_power("h100")), truth,
+                     queue=list(PC.APP_ORDER))
+        out.append(([(x.job, x.g, x.start, x.end) for x in r.records],
+                    r.total_energy))
+    assert out[0] == out[1]

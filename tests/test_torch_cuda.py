@@ -81,3 +81,60 @@ def test_torch_engine_schedule_on_the_card(device):
                        r.makespan, r.total_energy, K.STATS["score_reduce"].launches)
     assert out["torch"][:3] == out["vector"][:3]
     assert out["torch"][3] > 0 and out["vector"][3] == 0
+
+
+@pytest.mark.parametrize("sizes", [(5, 0, 300, 17), (1,), (6181, 0, 257, 256, 1)])
+def test_score_reduce_batch_kernel_matches_plain_and_solo(device, sizes):
+    from repro_torch.kernels import score_reduce as K
+
+    rng = np.random.default_rng(len(sizes))
+    reqs = []
+    for k, B in enumerate(sizes):
+        dev, g, n, mask = (t.cpu().numpy() for t in _block(rng, B, 3, "cpu"))
+        reqs.append(dict(dev=dev, g=g, n=n, lam=0.1 * (k + 1), g_free=8, M=8,
+                         mask=mask, bias=rng.uniform(0, 0.2, B)))
+    packed = K.pack_windows(reqs, device)
+    before = K.STATS["score_reduce_batch"].launches
+    scores, bests = K.score_reduce_batch(**packed)
+    assert K.STATS["score_reduce_batch"].launches == before + 1
+    s_p, b_p = K.score_reduce_batch_plain(**packed)
+    assert bests == b_p and torch.equal(scores, s_p)
+    off = packed["offsets"].tolist()
+    for d, (lo, hi) in enumerate(zip(off, off[1:])):
+        sl = slice(lo, hi)
+        s_d, b_d = K.score_reduce(packed["dev"][sl], packed["g"][sl],
+                                  packed["n"][sl], lam=reqs[d]["lam"], g_free=8,
+                                  M=8, bias=packed["bias"][sl],
+                                  mask=packed["mask"][sl])
+        assert b_d == bests[d]
+        assert torch.equal(s_d, scores[sl])
+
+
+def test_fleet_stages_through_the_batch_kernel(device):
+    from repro_torch.core import (Cluster, EcoSched, NodeSpec, ProfiledPerfModel,
+                                  RoundRobinDispatcher, bursty_stream)
+    from repro_torch.core import calibration as C
+    from repro_torch.kernels import score_reduce as K
+    from repro_torch.roofline.hw import H100
+
+    apps = C.build_system("h100")
+    out = {}
+    for engine in ("torch", "vector"):
+        pols = []
+
+        def policy_for(spec, truth, engine=engine):
+            pols.append(EcoSched(ProfiledPerfModel(truth, noise=0.0, seed=1),
+                                 lam=0.35, tau=0.45, engine=engine))
+            return pols[-1]
+
+        cl = Cluster([NodeSpec(f"n{i:03d}", H100, units=8, domains=2) for i in range(4)],
+                     truth_for=lambda s: apps, policy_for=policy_for,
+                     dispatcher=RoundRobinDispatcher())
+        K.reset_stats()
+        r = cl.simulate(bursty_stream(list(C.APP_ORDER), rate=0.25, n=48, seed=21, burst=6))
+        out[engine] = ([(x.job, x.node, x.g, x.start, x.end) for x in r.records],
+                       r.makespan, r.total_energy)
+        if engine == "torch":
+            assert K.STATS["score_reduce_batch"].launches > 0
+            assert sum(p.stage_served for p in pols) > 0
+    assert out["torch"] == out["vector"]

@@ -28,6 +28,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.score_reduce\n"
         "import repro_torch.kernels._build\n"
+        "import repro_torch.core.cluster, repro_torch.core.arrivals\n"
+        "import repro_torch.core.forecast, repro_torch.core.oracle\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

@@ -190,14 +190,19 @@ def test_pod_node_matches():
 
 
 def test_enabled_forecast_is_refused():
-    truth = PC.build_system("h100")
-
-    class _On:
-        enabled = True
-
-    with pytest.raises(NotImplementedError):
-        PCORE.simulate(eco(PCORE, truth, "torch"), PCORE.Node(4, 2, 70.0),
-                       truth, queue=list(PC.APP_ORDER), forecast=_On())
+    """An enabled ``ForecastConfig`` is no longer refused: it builds the
+    forecast plane, whose summary and schedule are the reference's."""
+    ref_truth = RC.build_system("h100")
+    out = {}
+    for tag, pkg, truth, engine in (
+        ("torch", PCORE, carry_profiles(ref_truth), "torch"),
+        ("vector", RCORE, ref_truth, "vector"),
+    ):
+        res = pkg.simulate(eco(pkg, truth, engine), pkg.Node(4, 2, 70.0), truth,
+                           queue=list(RC.APP_ORDER), forecast=pkg.ForecastConfig())
+        out[tag] = (schedule_key(res), sorted(res.forecast.items()))
+    assert out["torch"] == out["vector"]
+    assert out["torch"][1]  # the plane ran and reported its state
 
 
 def test_score_ties_carry_over_under_cpu_plain_kernels():
