@@ -15,14 +15,22 @@ the two 256-node cells of ``benchmarks/bench_fleet.py`` (bursty arrivals;
 elastic completions), whose same-instant bursts reach the card as one
 cross-node ``score_reduce_batch`` / ``score_reduce_multi`` launch.  Every
 schedule must equal the numpy engine's (``engine="vector"``) bit for bit,
-and every kernel of each path must have been launched.
+and every kernel of each path must have been launched.  The serving path
+-- ``build_model`` + ``make_prefill`` + ``make_decode_step`` of the model
+zoo -- serves hymba-1.5b at full width (cell ``serve_hymba_1_5b_p2048``:
+4 prompts of 2,048 tokens, 32 decode steps, bf16 and float32), its
+prefill launching ``flash_attention`` in every layer, against the plain
+blocked-attention route; ``ssd_forward(use_pallas=True)`` runs one
+full-width mamba2-2.7b layer through ``ssd_scan`` (cell
+``ssd_layer_mamba2_2_7b_s4096``) against the chunked form.
 
 Phases: 1 device and build, 2 kernels vs plain versions, 3 paper node,
-4 elastic, 5 pod scale, 6 fleet, 7 kernel timings.  The last two lines
-are the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Any failed
-check raises and the exit code is non-zero; without a CUDA device, or
-without the repository around it, the script exits 2 and prints no
-result.  It imports nothing of JAX and nothing of the reference package.
+4 elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD
+layer.  The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
+code is non-zero; without a CUDA device, or without the repository
+around it, the script exits 2 and prints no result.  It imports nothing
+of JAX and nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -49,11 +57,56 @@ FLEET_NODES, FLEET_M, FLEET_K, POD_SIZE, PODS_PER_REGION = 256, 8, 2, 16, 8
 FLEET_APPS, FLEET_JOBS, FLEET_WINDOW = 8, 2048, 8
 CHIP_SLOW = {"h100": 1.0, "a100": 1.6, "v100": 2.6}
 KERNELS = ("score_reduce", "score_reduce_batch", "score_reduce_multi")
+BF16_OPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
+# the model kernels' cases: the reference's kernel tests
+# (tests/test_kernels_flash.py, tests/test_kernels_ssd.py) plus the
+# serving path's shapes.  flash: (B, S, H, KVH, hd, window, softcap, causal)
+FLASH_CASES = (
+    (2, 128, 4, 2, 64, 0, 0.0, True), (1, 256, 8, 2, 32, 0, 0.0, True),
+    (1, 256, 8, 2, 32, 64, 0.0, True), (2, 128, 2, 2, 64, 0, 30.0, True),
+    (1, 128, 4, 1, 128, 32, 0.0, True), (1, 64, 4, 4, 16, 0, 0.0, True),
+    (2, 192, 6, 2, 64, 96, 20.0, True), (1, 128, 4, 4, 32, 0, 0.0, False),
+    (4, 2048, 25, 5, 64, 1024, 0.0, True),  # hymba-1.5b prefill
+    (1, 2048, 32, 8, 128, 0, 0.0, True),  # granite-like
+    (1, 1024, 8, 4, 256, 512, 30.0, True),  # gemma3-like
+    (1, 1000, 8, 2, 64, 128, 0.0, True),  # ragged S
+)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference tests'
+# ssd: (B, S, nh, hp, N, chunk)
+SSD_CASES = (
+    (2, 128, 4, 32, 64, 32), (1, 256, 2, 64, 128, 64), (2, 64, 8, 16, 32, 16),
+    (1, 128, 4, 32, 64, 128),
+    (2, 4096, 80, 64, 128, 256),  # mamba2-2.7b layer
+    (4, 2048, 50, 64, 16, 256),  # hymba-1.5b's SSD heads
+)
+SSD_TOL = 2e-4
+FLASH_PATH, SSD_PATH = FLASH_CASES[8], SSD_CASES[4]  # phase 7's timed shapes
+SERVE_ARCH, SERVE_B, SERVE_P, SERVE_STEPS, SERVE_CAP = "hymba-1.5b", 4, 2048, 32, 2080
+# rel. max error (max |diff| / max |plain|) of the kernel route against the
+# plain blocked route.  Per layer, each layer fed the plain route's input
+# (its attention output and the layer's output), and end to end in float32:
+SERVE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# End to end through all 32 layers in bf16 a one-ulp difference in one
+# layer grows with depth in this random-weight model: two plain routes of
+# the reference's own (dense vs blocked attention) differ by about 0.05 at
+# the logits (NVIDIA H100 80GB HBM3, 700 W).  So the bf16 bound on the
+# prefill logits, and on the decode steps, is the larger of 2e-2 and this
+# factor times that spread, measured in the same run on the same weights,
+# prompts and decode tokens.
+SERVE_SPREAD_FACTOR = 1.5
+SSD_ARCH, SSD_B, SSD_S = "mamba2-2.7b", 2, 4096
 
 
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def smi() -> str:
@@ -386,6 +439,81 @@ def phase_kernels(device) -> Diff:
     return diff
 
 
+def flash_inputs(case, dtype, device, seed):
+    """Seeded q, k, v of a ``FLASH_CASES`` entry, made on the card."""
+    import torch
+
+    B, S, H, KVH, hd = case[:5]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((B, S, n, hd), generator=gen, device=device).to(dtype)
+            for n in (H, KVH, KVH)]
+
+
+def ssd_inputs(case, dtype, device, seed):
+    """Seeded xh, dt, A, Bm, Cm of an ``SSD_CASES`` entry (the reference
+    tests' distributions), made on the card."""
+    import torch
+
+    B, S, nh, hp, N, _ = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def uni(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+    return (rnd(B, S, nh, hp).to(dtype), uni(0.001, 0.1, B, S, nh),
+            -uni(0.5, 4.0, nh), rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype))
+
+
+def phase_model_kernels(device):
+    """``flash_attention`` and ``ssd_scan`` against their plain versions on
+    the same card tensors, float32 and bfloat16; returns each kernel's
+    largest max abs error."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
+
+    err = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    for i, case in enumerate(FLASH_CASES):
+        window, softcap, causal = case[5:]
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        for name, tol in FLASH_TOL.items():
+            q, k, v = flash_inputs(case, getattr(torch, name), device, seed=i)
+            got = FA.flash_attention(q, k, v, **kw).float()
+            want = FA.flash_attention_plain(q, k, v, **kw).float()
+            d = float((got - want).abs().max())
+            check(torch.allclose(got, want, atol=tol, rtol=tol),
+                  f"flash_attention {case} {name}: max abs err {d} (tol {tol})")
+            err["flash_attention"] = max(err["flash_attention"], d)
+            print(f"  flash_attention {case} {name}: max_abs_err={d!r}")
+    # planted fault: the kernel with the window ignored must fail the check
+    q, k, v = flash_inputs(FLASH_PATH, torch.bfloat16, device, seed=0)
+    bad = FA.flash_attention(q, k, v, causal=True, window=0).float()
+    want = FA.flash_attention_plain(q, k, v, causal=True, window=FLASH_PATH[5]).float()
+    tol = FLASH_TOL["bfloat16"]
+    d = float((bad - want).abs().max())
+    check(not torch.allclose(bad, want, atol=tol, rtol=tol),
+          f"flash_attention: the check missed the planted fault (window ignored), {d}")
+    print(f"  flash_attention {FLASH_PATH} bfloat16, window ignored (planted fault): "
+          f"max_abs_err={d!r}, caught")
+    for i, case in enumerate(SSD_CASES):
+        for name in ("float32", "bfloat16"):
+            args = ssd_inputs(case, getattr(torch, name), device, seed=i)
+            y, h = SS.ssd_scan(*args, chunk=case[-1])
+            yp, hp = SS.ssd_scan_plain(*args, chunk=case[-1])
+            d = max(float((y - yp).abs().max()), float((h - hp).abs().max()))
+            check(torch.allclose(y, yp, atol=SSD_TOL, rtol=SSD_TOL)
+                  and torch.allclose(h, hp, atol=SSD_TOL, rtol=SSD_TOL),
+                  f"ssd_scan {case} {name}: max abs err {d} (tol {SSD_TOL})")
+            err["ssd_scan"] = max(err["ssd_scan"], d)
+            print(f"  ssd_scan {case} {name}: max_abs_err={d!r}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return err
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-5: the main path
 # ---------------------------------------------------------------------------
@@ -702,8 +830,7 @@ def fleet_leg(cell, engine, device, *, hier, staged=True, path=None):
                 run.loop.queue.push(a.t, EVT_ARRIVAL, a)
         run.loop.run()
         res = run.finalize()
-    if device.type == "cuda":
-        torch_sync()
+    sync(device)
     secs = time.perf_counter() - t0
     counts = read_stats() if path is not None else None
     if path is not None:
@@ -713,12 +840,6 @@ def fleet_leg(cell, engine, device, *, hier, staged=True, path=None):
     check({r.job for r in res.records} == {a.name for a in stream},
           f"fleet {cell}: not every job ran")
     return res, secs, pols, counts
-
-
-def torch_sync():
-    import torch
-
-    torch.cuda.synchronize()
 
 
 def phase_fleet(device, path):
@@ -1038,6 +1159,327 @@ def phase_timings(device, path, diff):
     return kernels
 
 
+def flash_ops(B, S, H, hd, window, causal):
+    """Operations of one flash_attention call with Sq = Skv = S: 4*hd
+    (q.k and p.v, a multiply and an add each) for every unmasked
+    (query, key) pair of every batch row and query head."""
+    pairs = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        hi = i + 1 if causal else S
+        pairs += hi - lo
+    return pairs * B * H * 4 * hd
+
+
+def time_flash(device):
+    """``flash_attention`` at hymba-1.5b's prefill shape in bf16 (the
+    serving type): the kernel by CUDA events, its plain version, and
+    ``scaled_dot_product_attention`` with ``enable_gqa`` and the window as
+    a boolean mask as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    case = FLASH_PATH
+    B, S, H, KVH, hd, window, softcap, causal = case
+    q, k, v = flash_inputs(case, torch.bfloat16, device, seed=99)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    qp = torch.arange(S, device=device)
+    mask = (qp[None, :] <= qp[:, None]) & (qp[None, :] > qp[:, None] - window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_err = float((sdpa().transpose(1, 2).float()
+                     - FA.flash_attention(q, k, v, **kw).float()).abs().max())
+    ops = flash_ops(B, S, H, hd, window, causal)
+    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KVH * hd)  # q, o; k, v
+    t_ops, t_bytes = ops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    return dict(shape=case, ms=cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 50),
+                plain_ms=cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), 5),
+                library_ms=cuda_ms(sdpa, 50), library_max_abs_vs_kernel=lib_err,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=n_bytes)
+
+
+def time_ssd(device):
+    """``ssd_scan`` at mamba2-2.7b's layer shape in bf16 (the model's
+    type): the kernel by CUDA events and its plain version.  No single
+    PyTorch call computes the SSD scan, so there is no library time."""
+    import torch
+    from repro_torch.kernels import ssd_scan as SS
+
+    case = SSD_PATH
+    B, S, nh, hp, N, Q = case
+    args = ssd_inputs(case, torch.bfloat16, device, seed=99)
+    # the products the function needs, two operations a multiply-add: C.B^T
+    # once per (batch, chunk), since it is the same for every head, and
+    # only its causal half, j <= i; per (batch, head, chunk) the causal
+    # half of scores.x, the carried-state term and the state update.  The
+    # elementwise decay weights (1.3 % as many operations) are left out.
+    tri = Q * (Q + 1) // 2
+    ops = 2 * B * (S // Q) * (tri * N + nh * (tri * hp + 2 * Q * N * hp))
+    n_bytes = (2 * (B * S * nh * hp + 2 * B * S * N) + 4 * (B * S * nh + nh)
+               + 4 * (B * S * nh * hp + B * nh * hp * N))
+    t_ops, t_bytes = ops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    return dict(shape=case, ms=cuda_ms(lambda: SS.ssd_scan(*args, chunk=Q), 20),
+                plain_ms=cuda_ms(lambda: SS.ssd_scan_plain(*args, chunk=Q), 5),
+                library_ms=None, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=n_bytes)
+
+
+def profile_model_kernel(fn, name, reps=10):
+    """Device µs per launch of ``name``'s kernel under the profiler."""
+    _, avgs = profiled(lambda: [fn() for _ in range(reps)])
+    dev = {k: v for k, v in device_kernels(avgs).items() if name in k}
+    if not dev:
+        return None
+    count = sum(c for c, _ in dev.values())
+    return sum(us for _, us in dev.values()) / count
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the serving path, hymba-1.5b at full width
+# ---------------------------------------------------------------------------
+
+
+def rel_err(a, b) -> float:
+    b = b.float()
+    return float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def serve_tokens(cfg, device, B, P, seed=SEED):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int64)).to(device)
+
+
+def pad_cache(cache, cap):
+    import torch.nn.functional as F
+
+    return {k: (F.pad(v, (0, 0, 0, 0, 0, cap - v.shape[2])) if k in ("k", "v") else v)
+            for k, v in cache.items()}
+
+
+def layerwise_rel_err(kern, plain, params, batch):
+    """The largest rel. errors of one layer's attention output and of its
+    output, the kernel route's against the plain route's, with every layer
+    of both fed the plain route's input to it (so differences cannot
+    compound across layers)."""
+    import torch
+    from repro_torch.models.model import _tmap
+
+    cfg = plain.cfg
+    h = plain._embed(params, batch)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    attn, out = 0.0, 0.0
+    for li in range(cfg.num_layers):
+        bp = _tmap(lambda x: x[li], params["blocks"])
+        g = cfg.layer_is_global(li % plain.period)
+        q, k, v = plain._qkv(bp["attn"], h, positions)
+        attn = max(attn, rel_err(kern._self_attention(q, k, v, is_global=g),
+                                 plain._self_attention(q, k, v, is_global=g)))
+        del q, k, v
+        hk, _ = kern._block_prefill(bp, h, is_global=g, positions=positions)
+        h, _ = plain._block_prefill(bp, h, is_global=g, positions=positions)
+        out = max(out, rel_err(hk, h))
+    return attn, out
+
+
+def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
+    """Cell ``serve_hymba_1_5b_p2048``, in bf16 and float32: seeded weights
+    made on the card, prefill through ``attn_impl="pallas"`` (the kernel)
+    and ``"blocked"`` (the plain route) on the same weights and prompts,
+    then ``steps`` greedy decode steps of the plain run, with the kernel
+    run fed the same tokens; in bf16 the reference's other plain route
+    (``"dense"``) runs beside them and sets the end-to-end bound.  Then
+    each layer of both routes on the plain route's input to it, and the
+    same for a planted fault (the kernel route with the window ignored),
+    which the per-layer and end-to-end checks must catch.  Launches are counted on the
+    prefills through the user entry points (warm-up and timed; the counts
+    are set to 0 before the phase).  Returns (launches, metrics by type)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.train import make_decode_step, make_prefill
+
+    base = get_config(SERVE_ARCH)
+    L = base.num_layers
+    out, launches = {}, 0
+    FA.reset_stats()
+    for dtype, tol in SERVE_TOL.items():
+        cfg = base.replace(dtype=dtype)
+        kern = build_model(cfg, Runtime(attn_impl="pallas", remat="none"))
+        plain = build_model(cfg, Runtime(attn_impl="blocked", remat="none"))
+        routes = {"k": kern, "p": plain}
+        if dtype == "bfloat16":
+            routes["d"] = build_model(cfg, Runtime(attn_impl="dense", remat="none"))
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        params = kern.init(gen)
+        batch = {"tokens": serve_tokens(cfg, device, B, P)}
+        prefill = {r: make_prefill(mdl) for r, mdl in routes.items()}
+        step = {r: make_decode_step(mdl) for r, mdl in routes.items()}
+        m = {}
+        with torch.inference_mode():
+            n0 = FA.STATS["flash_attention"]
+            prefill["k"](params, batch)  # warm-up: cuBLAS handles, first launches
+            sync(device)
+            n1 = FA.STATS["flash_attention"]
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, caches = {}, {}
+            logits["k"], caches["k"] = prefill["k"](params, batch)
+            sync(device)
+            m["prefill_s"] = time.perf_counter() - t0
+            if device.type == "cuda":
+                m["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            n2 = FA.STATS["flash_attention"]
+            for r in routes.keys() - {"k"}:
+                logits[r], caches[r] = prefill[r](params, batch)
+            sync(device)
+            check(n1 - n0 == L and n2 - n1 == L and FA.STATS["flash_attention"] == n2,
+                  f"serve {dtype}: flash_attention launches per prefill "
+                  f"{n1 - n0}, {n2 - n1} (want {L}) and "
+                  f"{FA.STATS['flash_attention'] - n2} on the plain routes (want 0)")
+            launches += n2 - n0
+            check(tuple(logits["k"].shape) == (B, 1, cfg.vocab_size)
+                  and bool(torch.isfinite(logits["k"].float()).all()),
+                  f"serve {dtype}: prefill logits not finite of shape (B, 1, V)")
+            # rel. errors against the plain route: [prefill, step 0, ...]
+            errs = {r: [rel_err(logits[r], logits["p"])] for r in routes.keys() - {"p"}}
+            caches = {r: pad_cache(c, cap) for r, c in caches.items()}
+            tok = logits["p"][:, -1].argmax(-1)[:, None]
+            step_s, agree = [], 0
+            for i in range(steps):
+                lg = {}
+                for r in routes.keys() - {"k"}:
+                    lg[r], caches[r] = step[r](params, caches[r], tok, P + i)
+                sync(device)
+                t0 = time.perf_counter()
+                lg["k"], caches["k"] = step["k"](params, caches["k"], tok, P + i)
+                sync(device)
+                step_s.append(time.perf_counter() - t0)
+                check(bool(torch.isfinite(lg["k"].float()).all()),
+                      f"serve {dtype}: decode step {i} logits not finite")
+                for r in errs:
+                    errs[r].append(rel_err(lg[r], lg["p"]))
+                agree += int(torch.equal(lg["k"][:, -1].argmax(-1), lg["p"][:, -1].argmax(-1)))
+                tok = lg["p"][:, -1].argmax(-1)[:, None]
+            check(FA.STATS["flash_attention"] == n2, f"serve {dtype}: decode launched flash")
+            del caches
+            m["prefill_rel_err"], m["decode_max_rel_err"] = errs["k"][0], max(errs["k"][1:])
+            lim = [tol, tol]
+            if "d" in errs:  # the plain routes' own spread, end to end
+                m["dense_vs_blocked_prefill"] = errs["d"][0]
+                m["dense_vs_blocked_decode_max"] = max(errs["d"][1:])
+                lim = [max(tol, SERVE_SPREAD_FACTOR * e)
+                       for e in (errs["d"][0], max(errs["d"][1:]))]
+            m["e2e_bound_prefill_decode"] = lim
+            check(m["prefill_rel_err"] < lim[0],
+                  f"serve {dtype}: prefill logits rel err {m['prefill_rel_err']} >= {lim[0]}")
+            check(m["decode_max_rel_err"] < lim[1],
+                  f"serve {dtype}: decode rel err {m['decode_max_rel_err']} >= {lim[1]}")
+            m["layer_attn_rel_err"], m["layer_out_rel_err"] = layerwise_rel_err(
+                kern, plain, params, batch)
+            check(max(m["layer_attn_rel_err"], m["layer_out_rel_err"]) < tol,
+                  f"serve {dtype}: a layer's rel errs (attention, output) "
+                  f"{m['layer_attn_rel_err']}, {m['layer_out_rel_err']} >= {tol}")
+            # planted fault: the kernel route with the window ignored
+            fault = build_model(cfg.replace(sliding_window=0), kern.rt)
+            m["fault_layer_attn_out_rel_err"] = layerwise_rel_err(fault, plain, params, batch)
+            check(max(m["fault_layer_attn_out_rel_err"]) >= tol,
+                  f"serve {dtype}: the per-layer check missed the planted fault: "
+                  f"{m['fault_layer_attn_out_rel_err']} < {tol}")
+            m["fault_prefill_rel_err"] = rel_err(fault.prefill(params, batch)[0], logits["p"])
+            check(m["fault_prefill_rel_err"] >= lim[0],
+                  f"serve {dtype}: the end-to-end check missed the planted fault: "
+                  f"{m['fault_prefill_rel_err']} < {lim[0]}")
+            m.update(
+                prefill_tokens_per_s=B * P / m["prefill_s"],
+                decode_ms_per_step=statistics.median(step_s) * 1e3,
+                decode_tokens_per_s=B / statistics.median(step_s),
+                greedy_agree=f"{agree}/{steps}",
+            )
+            if dtype == "bfloat16" and device.type == "cuda":
+                def window():
+                    _, c = prefill["k"](params, batch)
+                    c = pad_cache(c, cap)
+                    t = tok
+                    for i in range(4):
+                        lg, c = step["k"](params, c, t, P + i)
+                        t = lg[:, -1].argmax(-1)[:, None]
+
+                wall, avgs = profiled(window)
+                dev = device_kernels(avgs)
+                busy = sum(us for _, us in dev.values()) * 1e-6
+                flash = [(c, us) for k, (c, us) in dev.items() if "flash_kernel" in k]
+                m.update(profiled_wall_s=wall, device_busy_s=busy,
+                         idle_share=1.0 - busy / wall if busy > 0 else None,
+                         flash_device_us=(sum(us for _, us in flash) / sum(c for c, _ in flash)
+                                          if flash else None))
+                top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
+                m["top_device_kernels"] = [(k[:50], c, round(us, 1)) for k, (c, us) in top]
+        out[dtype] = m
+        print(f"  serve_{SERVE_ARCH} {dtype}: " + " ".join(f"{k}={v!r}" for k, v in m.items()))
+        del params
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: one full-width mamba2-2.7b SSD layer through ssd_scan
+# ---------------------------------------------------------------------------
+
+
+def phase_ssd_layer(device, B=SSD_B, S=SSD_S):
+    """Cell ``ssd_layer_mamba2_2_7b_s4096``: ``ssd_forward`` of one seeded
+    full-width layer, ``use_pallas=True`` (the kernel) against
+    ``use_pallas=False`` (the chunked form), float32 and bf16.  The launch
+    count is set to 0 before the phase and read after it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import ssd as ssd_mod
+
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    out, launches = {}, 0
+    SS.reset_stats()
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(SSD_ARCH).replace(dtype=dtype)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        p = ssd_mod.ssd_init(gen, cfg, getattr(torch, dtype))
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device=device).to(
+            getattr(torch, dtype))
+        with torch.inference_mode():
+            n0 = SS.STATS["ssd_scan"]
+            got = ssd_mod.ssd_forward(p, x, cfg, use_pallas=True)
+            sync(device)
+            check(SS.STATS["ssd_scan"] == n0 + 1, f"ssd layer {dtype}: no ssd_scan launch")
+            launches += 1
+            want = ssd_mod.ssd_forward(p, x, cfg, use_pallas=False)
+            sync(device)
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            check(all(e < tol[dtype] for e in errs) and bool(torch.isfinite(got[0].float()).all()),
+                  f"ssd layer {dtype}: rel errs (out, state, conv) {errs} >= {tol[dtype]}")
+            if device.type == "cuda":
+                kern_ms = cuda_ms(lambda: ssd_mod.ssd_forward(p, x, cfg, use_pallas=True), 5)
+                plain_ms = cuda_ms(lambda: ssd_mod.ssd_forward(p, x, cfg), 5)
+            else:
+                kern_ms = plain_ms = None
+        out[dtype] = dict(rel_err_out_state_conv=errs, layer_ms_kernel=kern_ms,
+                          layer_ms_chunked=plain_ms)
+        print(f"  ssd_layer_{SSD_ARCH} B={B} S={S} {dtype}: "
+              + " ".join(f"{k}={v!r}" for k, v in out[dtype].items()))
+    return launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -1072,13 +1514,21 @@ def main() -> int:
     print(f"  kernels built in {build_s:.3f} s ({'cached' if cached else 'fresh'}) "
           f"-> {_build.library_path().relative_to(ROOT)}")
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("build_s"):
+        if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+        elif line.startswith(("$", "compile_s", "build_s")):
+            print(f"  nvcc: {line.split(' -')[0] if line[0] == '$' else line}")
 
     lap("1")
     print("== phase 2: kernels vs plain versions on the card")
+    # plain float32 versions in exact float32 (no TF32 matmuls) from here on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"  torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     diff = phase_kernels(device)
     print(f"  cases={diff.cases} max_abs_err={diff.max_abs}")
+    model_err = phase_model_kernels(device)
+    print(f"  model kernels: max_abs_err={model_err}")
     lap("2")
 
     path = MainPath()
@@ -1100,7 +1550,43 @@ def main() -> int:
 
     print("== phase 7: kernel times at the main paths' largest shapes")
     kernels = phase_timings(device, path, diff)
+    model_times = {"flash_attention": time_flash(device), "ssd_scan": time_ssd(device)}
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
+
+    fl = flash_inputs(FLASH_PATH, torch.bfloat16, device, seed=99)
+    window, softcap, causal = FLASH_PATH[5:]
+    model_times["flash_attention"]["device_us"] = profile_model_kernel(
+        lambda: FA.flash_attention(*fl, causal=causal, window=window, softcap=softcap),
+        "flash_kernel")
+    sa = ssd_inputs(SSD_PATH, torch.bfloat16, device, seed=99)
+    model_times["ssd_scan"]["device_us"] = profile_model_kernel(
+        lambda: SS.ssd_scan(*sa, chunk=SSD_PATH[-1]), "ssd_kernel")
+    for name, t in model_times.items():
+        print(f"  {name} at {t['shape']} bf16: " + " ".join(
+            f"{k}={v!r}" for k, v in t.items() if k != "shape"))
     lap("7")
+
+    print("== phase 8: serving path, serve_hymba_1_5b_p2048")
+    flash_launches, _ = phase_serve(device)
+    check(flash_launches > 0, "flash_attention was never launched on the serving path")
+    lap("8")
+    print("== phase 9: SSD layer, ssd_layer_mamba2_2_7b_s4096")
+    ssd_launches, _ = phase_ssd_layer(device)
+    check(ssd_launches > 0, "ssd_scan was never launched on the SSD layer")
+    lap("9")
+    print(f"  serving and SSD launches: flash_attention={flash_launches} "
+          f"ssd_scan={ssd_launches}")
+    for name, src, line, n in (
+            ("flash_attention", "flash_attention.cu", "flash_attention.py:127", flash_launches),
+            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:102", ssd_launches)):
+        t = model_times[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=f"src/repro/kernels/{line}", launches=n,
+            max_abs_err=model_err[name], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"]))
     print(f"  phase_seconds={laps} total_s={time.perf_counter() - t_start:.1f}")
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -2,21 +2,24 @@
 
 A scheduler has no weights; what both packages must share to be compared
 is the ground-truth profile table the simulator reads, the Phase-I
-estimates the decision scores and, for a fleet, the arrival stream.  The
-reference's objects export to plain dicts and numpy arrays
-(``dataclasses.asdict`` of a ``JobProfile``; per-mode columns of a
-``JobSpec``; ``(name, app, t)`` rows of a stream), and these functions
-turn that data into this package's types, value for value.  Nothing here
-imports the reference.
+estimates the decision scores and, for a fleet, the arrival stream.  A
+model has weights: its parameter tree.  The reference's objects export
+to plain dicts and numpy arrays (``dataclasses.asdict`` of a
+``JobProfile``; per-mode columns of a ``JobSpec``; ``(name, app, t)``
+rows of a stream; ``tree_map(np.asarray, params)`` of a parameter tree),
+and these functions turn that data into this package's types, value for
+value.  Nothing here imports the reference.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.arrivals import Arrival
 from repro_torch.core.types import JobProfile, JobSpec, ModeEstimate
+from repro_torch.device import resolve_device
 
 _CURVES = ("runtime", "busy_power", "dram_util", "freq_time", "freq_power")
 
@@ -71,3 +74,28 @@ def arrivals_from_tuples(rows: Sequence[Sequence[Any]]) -> List[Arrival]:
     order, so the order is part of the stream)."""
     return [Arrival(t=float(t), name=str(name), app=str(app))
             for name, app, t in rows]
+
+
+def params_from_numpy(tree: Mapping[str, Any], *, device="cuda",
+                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A nested dict of numpy arrays (a reference parameter tree, or a
+    cache) -> the same dict of torch tensors on ``device``, keys and
+    shapes unchanged.  Each leaf keeps its type (bfloat16 leaves, which
+    numpy holds as ``ml_dtypes.bfloat16`` and ``torch.from_numpy``
+    refuses, go through float32, exactly) unless ``dtype`` is given, which
+    every floating leaf is cast to.  A CUDA ``device`` without a card
+    raises."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))  # a writable copy
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(dev)
+
+    return {k: params_from_numpy(v, device=dev, dtype=dtype)
+            if isinstance(v, Mapping) else leaf(v) for k, v in tree.items()}

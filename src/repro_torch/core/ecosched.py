@@ -68,6 +68,7 @@ from repro_torch.core.actions import enumerate_actions
 from repro_torch.core.engine import DecisionCache, _mask_of, enumerate_scored
 from repro_torch.core.score import tau_filter
 from repro_torch.core.types import JobSpec, Launch, NodeView, RunningJob
+from repro_torch.device import resolve_device
 from repro_torch.kernels.score_reduce import (
     pack_windows,
     score_reduce,
@@ -97,16 +98,8 @@ class EcoSched:
             raise ValueError(f"unknown scoring engine {engine!r}")
         # the torch engine's kernels run where its tensors lie: a CUDA
         # device launches them or raises, never a quiet CPU fallback
-        self.device = torch.device(device)
-        if (
-            engine == "torch"
-            and self.device.type == "cuda"
-            and not torch.cuda.is_available()
-        ):
-            raise RuntimeError(
-                'engine="torch" needs a CUDA device; pass device="cpu" to '
-                "run the kernels' plain versions on the CPU"
-            )
+        self.device = (resolve_device(device) if engine == "torch"
+                       else torch.device(device))
         self.perf_model = perf_model
         self.lam = lam
         self.tau = tau

@@ -1,18 +1,22 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` into one shared library
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library
 with a plain C interface, which is loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/kernels/libreprotorch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
+    nvcc -shared -gencode arch=compute_90a,code=sm_90a
+         -o build/kernels/libreprotorch_<hash>.so *.o
 
 The build runs at first use, never at import, and is keyed on a hash of
 the sources and the flags, so an edited kernel rebuilds and an unchanged
 one loads the library already built.  ``nvcc``'s output (``-Xptxas -v``:
 registers, shared memory and spills per kernel) is kept beside the
-library as ``<name>.log``.  Each entry point's ``argtypes`` are declared
-here: ``c_void_p`` for every pointer and for the stream, ``c_int`` for
-counts, ``c_float`` for scalars.
+library as ``<name>.log``, with each step's own seconds (``compile_s``)
+and the whole build's (``build_s``).  Each entry point's ``argtypes``
+are declared here: ``c_void_p`` for every pointer and for the stream,
+``c_int`` for counts, ``c_float`` for scalars.
 """
 from __future__ import annotations
 
@@ -24,15 +28,15 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List
+from typing import List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -42,6 +46,11 @@ _SIGNATURES = {
     # dev, g, f, n, bias, mask, offsets, params, W, S, scores, best, stream
     # (score_reduce_multi and score_reduce_batch)
     "score_reduce_multi_launch": [_P] * 8 + [_I, _I] + [_P] * 3,
+    # q, k, v, o, B, Sq, Skv, H, KVH, hd, dtype, causal, window,
+    # scale, softcap, stream
+    "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
+    # x, dt, A, Bm, Cm, y, h, B, S, nh, hp, N, Q, dtype, stream
+    "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 
@@ -70,6 +79,15 @@ def library_path() -> Path:
     return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd) -> Tuple[int, str]:
+    """Run ``cmd``; its exit code and a log of it, its output and its own
+    seconds (``compile_s``)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc.returncode, (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                             f"compile_s={time.perf_counter() - t0:.3f}\n")
+
+
 def build() -> Path:
     """Compile the sources unless the library for their hash exists.
     Returns the library's path; raises with nvcc's output on failure."""
@@ -77,20 +95,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename, so concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}build_s={secs:.3f}\n"
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    out.with_suffix(".log").write_text(log)
-    os.replace(tmp, out)
+    # objects and the library go to private names first, so concurrent
+    # builds never load a half-written library
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        t0 = time.perf_counter()
+        objs = [work / f"{src.stem}.o" for src in sources()]
+        cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for o, src in zip(objs, sources())]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            done = list(pool.map(_run, cmds))
+        failed = any(rc != 0 for rc, _ in done)
+        log = "".join(text for _, text in done)
+        if not failed:
+            lib = work / "lib.so"
+            rc, text = _run([nvcc(), "-shared", *ARCH_FLAGS, "-o", str(lib),
+                             *map(str, objs)])
+            log += text
+            failed = rc != 0
+        log += f"build_s={time.perf_counter() - t0:.3f}\n"
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        out.with_suffix(".log").write_text(log)
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

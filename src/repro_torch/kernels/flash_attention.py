@@ -1,0 +1,125 @@
+"""Flash attention: causal / sliding-window / GQA / softcap (PyTorch + CUDA).
+
+Twin of ``repro.kernels.flash_attention``.  For q (B, Sq, H, hd) and
+k, v (B, Skv, KVH, hd) with H = KVH·G, query head ``j`` attends to KV
+head ``j // G``:
+
+    s = softcap·tanh((scale·q)·kᵀ / softcap)     (no tanh when softcap = 0)
+    s = -1e30 where the causal (k ≤ q) or window (k > q − window) mask fails
+    o = softmax(s)·v
+
+in float32 whatever the input type (float32 or bfloat16); the output has
+q's type.  Positions count from 0 on both axes, as in the reference.
+
+On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
+of ``csrc/flash_attention.cu`` (built at first use by ``_build``) or
+raises; it never falls back.  On a CPU tensor it runs
+:func:`flash_attention_plain`, the materialised-scores definition (the
+reference's ``ref.flash_attention_ref``).  Only a kernel launch counts in
+``STATS``.
+
+The reference's TPU tiling knobs (``block_q``/``block_k``) are gone: the
+kernel picks its own tiles, and a ragged last tile is masked, so any
+sequence length is taken.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional
+
+import torch
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # the kernel's instantiations
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+STATS: Dict[str, int] = {"flash_attention": 0}
+
+
+def reset_stats() -> None:
+    STATS["flash_attention"] = 0
+
+
+def _check(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 4:
+            raise TypeError(f"{name} must be a 4-D torch tensor")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, q is "
+                             f"{q.dtype} on {q.device}")
+    B, Sq, H, hd = q.shape
+    _, Skv, KVH, _ = k.shape
+    if tuple(k.shape) != (B, Skv, KVH, hd) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit "
+                         f"q {tuple(q.shape)}")
+    if KVH == 0 or H % KVH:
+        raise ValueError(f"H={H} is not a multiple of KVH={KVH}")
+    return B, Sq, Skv, H, KVH, hd
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version: the full (Sq, Skv) score matrix per head,
+    float32 softmax.  Same arguments and result as :func:`flash_attention`."""
+    B, Sq, Skv, H, KVH, hd = _check(q, k, v)
+    G = H // KVH
+    scale = scale or 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KVH, G, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(Sq, device=q.device)
+    kp = torch.arange(Skv, device=q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp[None, :] <= qp[:, None]
+    if window > 0:
+        mask &= kp[None, :] > qp[:, None] - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Online-softmax attention; see the module docstring.
+
+    ``q`` (B, Sq, H, hd), ``k``/``v`` (B, Skv, KVH, hd), contiguous, one
+    type (float32 or bfloat16) and one device.  ``scale`` defaults to
+    1/sqrt(hd).  On the card ``hd`` must be one of :data:`HEAD_DIMS`.
+    """
+    B, Sq, Skv, H, KVH, hd = _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if Skv == 0:
+        raise ValueError("flash_attention needs at least one key")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    from repro_torch.kernels._build import library
+
+    scale = scale or 1.0 / math.sqrt(hd)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Skv, H, KVH, hd, _DTYPES[q.dtype], int(bool(causal)),
+        int(window), float(scale), float(softcap), ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch: CUDA error {err}")
+    STATS["flash_attention"] += 1
+    return out

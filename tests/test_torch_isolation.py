@@ -30,6 +30,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.kernels._build\n"
         "import repro_torch.core.cluster, repro_torch.core.arrivals\n"
         "import repro_torch.core.forecast, repro_torch.core.oracle\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.train.step\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

@@ -189,7 +189,7 @@ def test_pod_node_matches():
     assert len({r.job for r in res.records}) == 24
 
 
-def test_enabled_forecast_is_refused():
+def test_enabled_forecast_matches_reference():
     """An enabled ``ForecastConfig`` is no longer refused: it builds the
     forecast plane, whose summary and schedule are the reference's."""
     ref_truth = RC.build_system("h100")
