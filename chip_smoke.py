@@ -19,14 +19,19 @@ and every kernel of each path must have been launched.  The serving path
 -- ``build_model`` + ``make_prefill`` + ``make_decode_step`` of the model
 zoo -- serves hymba-1.5b at full width (cell ``serve_hymba_1_5b_p2048``:
 4 prompts of 2,048 tokens, 32 decode steps, bf16 and float32), its
-prefill launching ``flash_attention`` in every layer, against the plain
-blocked-attention route; ``ssd_forward(use_pallas=True)`` runs one
+prefill launching ``flash_attention`` in every layer (bf16: the wgmma
+kernel on the tensor cores; float32: the CUDA-core kernel), against the
+plain blocked-attention route; ``ssd_forward(use_pallas=True)`` runs one
 full-width mamba2-2.7b layer through ``ssd_scan`` (cell
 ``ssd_layer_mamba2_2_7b_s4096``) against the chunked form.
 
-Phases: 1 device and build, 2 kernels vs plain versions, 3 paper node,
-4 elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD
-layer.  The last two lines are the kernels' JSON record and
+Phases: 1 device and build (and the tensor-core instructions in the bf16
+flash kernel's SASS), 2 kernels vs plain versions, 3 paper node, 4
+elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer.
+``score_reduce`` carries the idle-node guard in its one launch
+(``guard=``); phases 3-5 print its guarded calls.  The last two lines
+are the kernels' JSON record (the float32 flash kernel has its own entry,
+``flash_attention_float32``) and
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
 code is non-zero; without a CUDA device, or without the repository
 around it, the script exits 2 and prints no result.  It imports nothing
@@ -70,6 +75,9 @@ FLASH_CASES = (
     (1, 2048, 32, 8, 128, 0, 0.0, True),  # granite-like
     (1, 1024, 8, 4, 256, 512, 30.0, True),  # gemma3-like
     (1, 1000, 8, 2, 64, 128, 0.0, True),  # ragged S
+    # every head dim of the kernels, ragged S, non-causal and windowed
+    (1, 300, 4, 2, 96, 0, 25.0, False), (2, 333, 6, 2, 96, 100, 0.0, True),
+    (1, 300, 4, 2, 16, 0, 25.0, False), (1, 300, 4, 2, 256, 0, 0.0, False),
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference tests'
 # ssd: (B, S, nh, hp, N, chunk)
@@ -116,6 +124,28 @@ def smi() -> str:
     )
     check(out.returncode == 0, f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_mma_counts(lib_path):
+    """{kernel: count of tensor-core instructions (HGMMA, HMMA) in its SASS}
+    of the built library, by ``cuobjdump -sass`` from the toolkit that built
+    it; None when the toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump: {out.stderr.strip()[:300]}")
+    fn, counts = None, {}
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HGMMA" in line or "HMMA" in line):
+            counts[fn] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -259,12 +289,25 @@ class Diff:
         self.cases[name] += 1
 
 
-def solo_vs_plain(diff, cols, kw, tag):
+def solo_vs_plain(diff, cols, kw, tag, guard=None):
+    """``score_reduce`` against its plain version; with ``guard`` also the
+    guarded winner, against the plain version's and against a second plain
+    call masked with ``mask & guard`` (the two calls it replaces)."""
     from repro_torch.kernels import score_reduce as K
 
     args = (cols["dev"], cols["g"], cols["n"])
-    s_k, b_k = K.score_reduce(*args, **kw)
-    s_p, b_p = K.score_reduce_plain(*args, **kw)
+    if guard is None:
+        s_k, b_k = K.score_reduce(*args, **kw)
+        s_p, b_p = K.score_reduce_plain(*args, **kw)
+    else:
+        s_k, b_k, j_k = K.score_reduce(*args, guard=guard, **kw)
+        s_p, b_p, j_p = K.score_reduce_plain(*args, guard=guard, **kw)
+        mask = kw.get("mask")
+        both = (guard > 0) if mask is None else (guard > 0) & (mask > 0)
+        _, j_two = K.score_reduce_plain(*args, **dict(kw, mask=both.float()))
+        check(j_k == j_p == j_two,
+              f"score_reduce {tag}: guarded winner {j_k} != plain {j_p} / two calls {j_two}")
+        tag += "+guard"
     check(b_k == b_p, f"score_reduce {tag}: winner {b_k} != plain {b_p}")
     diff.scores("score_reduce", s_k, s_p, tag)
     return s_k, b_k
@@ -374,6 +417,9 @@ def phase_kernels(device) -> Diff:
                               f"{tag}: kernel winner off the engine's frontier")
                     solo_vs_plain(diff, cols, dict(kw, bias=bias, mask=mask), tag + "+bm")
                     solo_vs_plain(diff, cols, dict(kw, mask=cols["nonempty"]), tag + "+ne")
+                    solo_vs_plain(diff, cols, kw, tag, guard=cols["nonempty"])
+                    solo_vs_plain(diff, cols, dict(kw, bias=bias, mask=mask), tag + "+bm",
+                                  guard=cols["nonempty"])
                     dead = torch.zeros_like(cols["n"])
                     _, b_dead = solo_vs_plain(diff, cols, dict(kw, mask=dead), tag + "+dead")
                     check(b_dead == -1, f"{tag}: all-infeasible gave {b_dead}")
@@ -389,8 +435,10 @@ def phase_kernels(device) -> Diff:
     dead = dict(reqs[3], mask=np.zeros(len(reqs[3]["n"]), bool))
     multi = [empty] + reqs[:40] + [dead, empty] + reqs[40:]
     multi_vs_plain(diff, multi, device, "engine windows")
-    # synthetic blocks around the 256-row block edge and far beyond it
-    for B in (1, 255, 256, 257, 6181, 50000):
+    # synthetic blocks around the 256-row block edge of the packed kernels
+    # and the one-block edge of score_reduce (8192 rows), and far beyond;
+    # every block also with the guard (its non-empty rows)
+    for B in (1, 255, 256, 257, 1321, 5000, 6181, 8192, 8193, 50000, 70000):
         for S in (1, 2, 4, 8):
             n = rng.integers(0, S + 1, B).astype(np.float32)
             slot = np.arange(S)[None, :] < n[:, None]
@@ -399,16 +447,31 @@ def phase_kernels(device) -> Diff:
                 rng.integers(0, 4, (B, S)))]
             dev, g, f = (torch.from_numpy(p).to(device) for p in planes)
             cols = dict(dev=dev, g=g, n=torch.from_numpy(n).to(device))
+            guard = (cols["n"] > 0).float()
             mask = torch.from_numpy((rng.uniform(size=B) > 0.2).astype(np.float32)).to(device)
             bias = torch.from_numpy(rng.uniform(0, 0.1, B).astype(np.float32)).to(device)
             tag = f"B{B}S{S}"
             kw = dict(lam=LAM, g_free=16, M=16)
             solo_vs_plain(diff, cols, kw, tag)
             solo_vs_plain(diff, cols, dict(kw, f=f, lam_f=0.1, bias=bias, mask=mask), tag + "+fbm")
-            if B == 257:
+            solo_vs_plain(diff, cols, kw, tag, guard=guard)
+            solo_vs_plain(diff, cols, dict(kw, f=f, lam_f=0.1, bias=bias, mask=mask),
+                          tag + "+fbm", guard=guard)
+            if B in (257, 8193):
                 _, b_dead = solo_vs_plain(diff, cols, dict(kw, mask=torch.zeros_like(mask)),
-                                          tag + "+dead")
+                                          tag + "+dead", guard=guard)
                 check(b_dead == -1, f"{tag}: all-infeasible gave {b_dead}")
+                solo_vs_plain(diff, cols, dict(kw, mask=mask), tag + "+deadguard",
+                              guard=torch.zeros_like(guard))
+        if B in (1321, 70000):  # tie-heavy: few distinct slot values
+            n = rng.integers(0, 3, B).astype(np.float32)
+            slot = np.arange(2)[None, :] < n[:, None]
+            dev = np.where(slot, rng.integers(0, 2, (B, 2)) * 0.5, 0).astype(np.float32)
+            g = np.where(slot, rng.integers(1, 3, (B, 2)), 0).astype(np.float32)
+            cols = {k: torch.from_numpy(a).to(device) for k, a in (("dev", dev), ("g", g), ("n", n))}
+            s_t, _ = solo_vs_plain(diff, cols, dict(lam=LAM, g_free=4, M=8), f"B{B} ties",
+                                   guard=(cols["n"] > 0).float())
+            check(int((s_t == s_t.min()).sum()) > 1, f"B{B} ties: no tie to break")
         if B in (257, 6181):
             parts = np.split(np.arange(B), [B // 3, B // 3, 2 * B // 3])  # one empty
             wreqs = [dict(dev=planes[0][p], g=planes[1][p], n=n[p], f=planes[2][p],
@@ -475,7 +538,9 @@ def phase_model_kernels(device):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SS
 
-    err = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    # "flash_attention" is the bf16 (wgmma) kernel, the float32 one its own
+    err = {"flash_attention": 0.0, "flash_attention_float32": 0.0, "ssd_scan": 0.0}
+    hds = set()
     for i, case in enumerate(FLASH_CASES):
         window, softcap, causal = case[5:]
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -486,8 +551,11 @@ def phase_model_kernels(device):
             d = float((got - want).abs().max())
             check(torch.allclose(got, want, atol=tol, rtol=tol),
                   f"flash_attention {case} {name}: max abs err {d} (tol {tol})")
-            err["flash_attention"] = max(err["flash_attention"], d)
+            key = "flash_attention" if name == "bfloat16" else "flash_attention_float32"
+            err[key] = max(err[key], d)
             print(f"  flash_attention {case} {name}: max_abs_err={d!r}")
+        hds.add(case[4])
+    check(hds == set(FA.HEAD_DIMS), f"flash cases miss head dims {set(FA.HEAD_DIMS) - hds}")
     # planted fault: the kernel with the window ignored must fail the check
     q, k, v = flash_inputs(FLASH_PATH, torch.bfloat16, device, seed=0)
     bad = FA.flash_attention(q, k, v, causal=True, window=0).float()
@@ -557,7 +625,7 @@ class MainPath:
     and the largest kernel inputs they produced."""
 
     def __init__(self):
-        self.launches = {k: {"launches": 0, "rows": 0, "max_rows": 0}
+        self.launches = {k: {"launches": 0, "rows": 0, "max_rows": 0, "guarded": 0}
                          for k in KERNELS}
         self.solo = None  # (rows, batch, g_free, M, lam_f)
         self.multi = None  # (rows, reqs)
@@ -568,6 +636,7 @@ class MainPath:
         for name, st in stats.items():
             tot = self.launches[name]
             tot["launches"] += st["launches"]
+            tot["guarded"] += st["guarded"]
             tot["rows"] += st["rows"]
             tot["max_rows"] = max(tot["max_rows"], st["max_rows"])
         if pol is None:
@@ -591,7 +660,8 @@ def read_stats():
     from repro_torch.kernels import score_reduce as K
 
     return {k: dict(launches=v.launches, rows=v.rows, max_rows=v.max_rows,
-                    windows=v.windows, max_windows=v.max_windows)
+                    windows=v.windows, max_windows=v.max_windows,
+                    guarded=v.guarded)
             for k, v in K.STATS.items()}
 
 
@@ -626,7 +696,8 @@ def run_pair(truth, node, *, sim_kw, pol_kw, device, label, path,
     check({r.job for r in rt.records if r.kind == "run"} == jobs, f"{label}: not all jobs ran")
     print(f"  {label}: fp={fp(rt)[0]} makespan={rt.makespan!r} energy={rt.total_energy!r} "
           f"decisions={len(pt.times)} "
-          f"launches={ {k: v['launches'] for k, v in kstats.items()} }")
+          f"launches={ {k: v['launches'] for k, v in kstats.items()} } "
+          f"score_reduce_guarded_calls={kstats['score_reduce']['guarded']}")
     return rt, pt, pv, kstats
 
 
@@ -647,6 +718,8 @@ def phase_paper(device, path):
                         slowdown_model=C.cross_numa_slowdown),
         )
         check(st["score_reduce"]["launches"] > 0, f"{label}: no score_reduce launch")
+        # the idle node's first decision carries the guard in its one call
+        check(st["score_reduce"]["guarded"] > 0, f"{label}: no guarded score_reduce call")
         s = summarize(base, rt)
         print(f"  {label} vs sequential_optimal_gpu: energy_saving={s['energy_saving']!r} "
               f"makespan_improvement={s['makespan_improvement']!r} "
@@ -706,6 +779,7 @@ def phase_pod(device, path):
     med_t = statistics.median(pt.times) * 1e6
     med_v = statistics.median(pv.times) * 1e6
     print(f"  pod: decisions={len(pt.times)} kernel_launches={n_launch} "
+          f"guarded_calls={st['guarded']} "
           f"rows_per_launch max={st['max_rows']} "
           f"mean={st['rows'] / n_launch!r} median_us_per_decision torch={med_t!r} "
           f"vector={med_v!r} launch_hits={pt.launch_hits} frontier_hits={pt.frontier_hits}")
@@ -958,9 +1032,10 @@ def bound_ms(n_bytes, n_ops):
 
 def time_solo(device, B, batch, g_free, M, lam_f):
     """Times of ``score_reduce`` on one main-path batch: back-to-back raw
-    launches between CUDA events (``ms``, device time per launch pair),
-    the plain version (``plain_ms``), and the wrapper's host-clock call
-    time including its one D2H read (``call_us``)."""
+    launches between CUDA events (``ms``, device time per launch), the
+    plain version (``plain_ms``), and the wrapper's host-clock call time
+    including its one D2H read, without and with the idle-node guard
+    (``call_us``, ``guarded_call_us``)."""
     import ctypes
 
     import torch
@@ -973,28 +1048,43 @@ def time_solo(device, B, batch, g_free, M, lam_f):
     S = cols["dev"].shape[1]
     f = cols["f"]
     kw = dict(lam=LAM, g_free=g_free, M=M, f=f, lam_f=lam_f)
-    nb = -(-B // 256)
-    scores = torch.empty(B, device=device)
-    scratch = [torch.empty(nb, device=device), torch.empty(nb, device=device),
-               torch.empty(nb, dtype=torch.int32, device=device),
-               torch.empty(1, dtype=torch.int32, device=device)]
+    check(B <= K._ROWS_PER_BLOCK, f"main-path block of {B} rows is not one block")
+    out = torch.empty(B + 2, device=device)  # scores, then the two winners
 
-    def raw():
+    pinned = torch.empty(2, dtype=torch.int32, pin_memory=True)
+
+    def raw(host=None):
         err = lib.score_reduce_launch(
             cols["dev"].data_ptr(), cols["g"].data_ptr(),
             None if f is None else f.data_ptr(), cols["n"].data_ptr(), None, None,
-            B, S, LAM, float(g_free), float(M), float(lam_f),
-            scores.data_ptr(), *[t.data_ptr() for t in scratch], stream)
+            cols["nonempty"].data_ptr(), B, S, LAM, float(g_free), float(M),
+            float(lam_f), out.data_ptr(), None, host, stream)
         check(err == 0, f"raw score_reduce launch error {err}")
+
+    # the two ways to read the winners back after the launch: copied into
+    # pinned memory and synchronised inside the C call (the wrapper's), or
+    # .tolist() of the device pair; in turns
+    def read_in_call():
+        raw(pinned.data_ptr())
+        return pinned.tolist()
+
+    def read_tolist():
+        raw()
+        return out[B:B + 2].view(torch.int32).tolist()
+
+    reads = [host_us(fn, 2000) for fn in (read_in_call, read_tolist, read_tolist, read_in_call)]
 
     args = (cols["dev"], cols["g"], cols["n"])
     planes = 2 + (f is not None)
-    n_bytes = 4 * (planes * B * S + B) + 4 * B + 4  # planes, n in; scores, best out
+    # planes, n and the guard in; scores and two winners out
+    n_bytes = 4 * (planes * B * S + 2 * B) + 4 * B + 8
     bms, bby = bound_ms(n_bytes, B * (3 * S + 9))
     return dict(
         B=B, S=S, ms=cuda_ms(raw, 2000),
-        plain_ms=cuda_ms(lambda: K.score_reduce_plain(*args, **kw), 200),
+        plain_ms=cuda_ms(lambda: K.score_reduce_plain(*args, guard=cols["nonempty"], **kw), 200),
         call_us=host_us(lambda: K.score_reduce(*args, **kw), 2000),
+        guarded_call_us=host_us(lambda: K.score_reduce(*args, guard=cols["nonempty"], **kw), 2000),
+        launch_read_in_call_us=[reads[0], reads[3]], launch_read_tolist_us=[reads[1], reads[2]],
         bound_ms=bms, bound_by=bby,
     )
 
@@ -1091,10 +1181,13 @@ def profile_lines(device, path):
     dev = device_kernels(avgs)
     if not dev:
         print("  profiler: no device time seen; kernel device us not measured")
+    else:  # one score_reduce call is one launch of one kernel
+        solo = [c for k, (c, _) in dev.items() if "score_reduce_kernel" in k]
+        check(solo == [reps], f"score_reduce: {solo} kernel launches for {reps} calls")
     for name, (count, us) in sorted(dev.items()):
         print(f"  profiler device: {name[:60]} count={count} us_per_launch={us / count!r}")
     top = sorted(avgs, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
-    print("  profiler host, per wrapper pair: " + ", ".join(
+    print("  profiler host, per score_reduce + score_reduce_multi call: " + ", ".join(
         f"{e.key}={e.self_cpu_time_total / reps!r}us" for e in top))
 
     batch = path.batch[2]  # shares score_windows_kernel, so profiled alone
@@ -1134,6 +1227,10 @@ def phase_timings(device, path, diff):
     kernels = []
     for name, t in rows.items():
         extra = "".join(f" {k}={t[k]}" for k in ("D", "W") if k in t)
+        if "guarded_call_us" in t:
+            extra += (f" guarded_wrapper_call_us={t['guarded_call_us']!r}"
+                      f" launch+read_us: in-call pinned copy {t['launch_read_in_call_us']!r},"
+                      f" tolist {t['launch_read_tolist_us']!r}")
         print(f"  {name} at B={t['B']} S={t['S']}{extra}: "
               f"kernel_ms={t['ms']!r} plain_ms={t['plain_ms']!r} "
               f"wrapper_call_us={t['call_us']!r} (with its D2H read) "
@@ -1145,15 +1242,15 @@ def phase_timings(device, path, diff):
             max_abs_err=diff.max_abs[name], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
 
-    # the launch-latency floor: two tiny launches and one int read back
-    x = torch.zeros(1, dtype=torch.int32, device=device)
+    # the launch-latency floor of one call: one tiny launch and one read of
+    # two ints back
+    x = torch.zeros(2, dtype=torch.int32, device=device)
 
     def floor():
         x.add_(1)
-        x.add_(1)
-        return x.item()
+        return x.tolist()
 
-    print(f"  floor (two 1-element launches + one D2H int read): "
+    print(f"  floor (one 2-element launch + one D2H read of two ints): "
           f"call_us={host_us(floor, 2000)!r}")
     profile_lines(device, path)
     return kernels
@@ -1171,18 +1268,20 @@ def flash_ops(B, S, H, hd, window, causal):
     return pairs * B * H * 4 * hd
 
 
-def time_flash(device):
-    """``flash_attention`` at hymba-1.5b's prefill shape in bf16 (the
-    serving type): the kernel by CUDA events, its plain version, and
-    ``scaled_dot_product_attention`` with ``enable_gqa`` and the window as
-    a boolean mask as the library yardstick."""
+def time_flash(device, dtype="bfloat16"):
+    """``flash_attention`` at hymba-1.5b's prefill shape: the kernel by CUDA
+    events, its plain version, and ``scaled_dot_product_attention`` with
+    ``enable_gqa`` and the window as a boolean mask as the library
+    yardstick, in turns.  bf16 (the serving type) runs the wgmma kernel,
+    float32 the CUDA-core kernel; the bound takes the type's peak rate
+    (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s float32)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
 
     case = FLASH_PATH
     B, S, H, KVH, hd, window, softcap, causal = case
-    q, k, v = flash_inputs(case, torch.bfloat16, device, seed=99)
+    q, k, v = flash_inputs(case, getattr(torch, dtype), device, seed=99)
     kw = dict(causal=causal, window=window, softcap=softcap)
     qp = torch.arange(S, device=device)
     mask = (qp[None, :] <= qp[:, None]) & (qp[None, :] > qp[:, None] - window)
@@ -1192,14 +1291,21 @@ def time_flash(device):
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
 
-    lib_err = float((sdpa().transpose(1, 2).float()
-                     - FA.flash_attention(q, k, v, **kw).float()).abs().max())
+    def kern():
+        return FA.flash_attention(q, k, v, **kw)
+
+    lib_err = float((sdpa().transpose(1, 2).float() - kern().float()).abs().max())
     ops = flash_ops(B, S, H, hd, window, causal)
-    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KVH * hd)  # q, o; k, v
-    t_ops, t_bytes = ops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
-    return dict(shape=case, ms=cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 50),
+    size = q.element_size()
+    n_bytes = size * (2 * B * S * H * hd + 2 * B * S * KVH * hd)  # q, o; k, v
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    t_ops, t_bytes = ops / rate, n_bytes / HBM_BYTES_PER_S
+    reps = 50 if dtype == "bfloat16" else 20
+    ms = [cuda_ms(kern, reps), cuda_ms(sdpa, reps), cuda_ms(sdpa, reps), cuda_ms(kern, reps)]
+    return dict(shape=case, dtype=dtype, ms=min(ms[0], ms[3]), ms_turns=[ms[0], ms[3]],
                 plain_ms=cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), 5),
-                library_ms=cuda_ms(sdpa, 50), library_max_abs_vs_kernel=lib_err,
+                library_ms=min(ms[1], ms[2]), library_ms_turns=[ms[1], ms[2]],
+                library_max_abs_vs_kernel=lib_err,
                 bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 ops=ops, bytes=n_bytes)
@@ -1303,7 +1409,8 @@ def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
     same for a planted fault (the kernel route with the window ignored),
     which the per-layer and end-to-end checks must catch.  Launches are counted on the
     prefills through the user entry points (warm-up and timed; the counts
-    are set to 0 before the phase).  Returns (launches, metrics by type)."""
+    are set to 0 before the phase).  Returns (launches by type, metrics by
+    type)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
@@ -1312,7 +1419,7 @@ def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
 
     base = get_config(SERVE_ARCH)
     L = base.num_layers
-    out, launches = {}, 0
+    out, launches = {}, {}
     FA.reset_stats()
     for dtype, tol in SERVE_TOL.items():
         cfg = base.replace(dtype=dtype)
@@ -1349,7 +1456,7 @@ def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
                   f"serve {dtype}: flash_attention launches per prefill "
                   f"{n1 - n0}, {n2 - n1} (want {L}) and "
                   f"{FA.STATS['flash_attention'] - n2} on the plain routes (want 0)")
-            launches += n2 - n0
+            launches[dtype] = n2 - n0  # bf16: the wgmma kernel, float32: the CUDA-core one
             check(tuple(logits["k"].shape) == (B, 1, cfg.vocab_size)
                   and bool(torch.isfinite(logits["k"].float()).all()),
                   f"serve {dtype}: prefill logits not finite of shape (B, 1, V)")
@@ -1518,6 +1625,16 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
         elif line.startswith(("$", "compile_s", "build_s")):
             print(f"  nvcc: {line.split(' -')[0] if line[0] == '$' else line}")
+    mma = sass_mma_counts(_build.library_path())
+    if mma is None:
+        print("  sass: no cuobjdump in the toolkit; tensor-core instructions not counted")
+    else:  # the bf16 flash kernel must run its products on the tensor cores
+        wg = {k: n for k, n in mma.items() if "flash_kernel_wgmma" in k}
+        check(wg and all(n > 0 for n in wg.values()),
+              f"flash_kernel_wgmma has no HGMMA/HMMA in its SASS: {wg}")
+        for k, n in sorted(mma.items()):
+            if n or "flash" in k:
+                print(f"  sass: {k[:110]} HGMMA/HMMA={n}")
 
     lap("1")
     print("== phase 2: kernels vs plain versions on the card")
@@ -1550,7 +1667,9 @@ def main() -> int:
 
     print("== phase 7: kernel times at the main paths' largest shapes")
     kernels = phase_timings(device, path, diff)
-    model_times = {"flash_attention": time_flash(device), "ssd_scan": time_ssd(device)}
+    model_times = {"flash_attention": time_flash(device, "bfloat16"),
+                   "flash_attention_float32": time_flash(device, "float32"),
+                   "ssd_scan": time_ssd(device)}
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SS
 
@@ -1558,18 +1677,24 @@ def main() -> int:
     window, softcap, causal = FLASH_PATH[5:]
     model_times["flash_attention"]["device_us"] = profile_model_kernel(
         lambda: FA.flash_attention(*fl, causal=causal, window=window, softcap=softcap),
-        "flash_kernel")
+        "flash_kernel_wgmma")
+    fl = flash_inputs(FLASH_PATH, torch.float32, device, seed=99)
+    model_times["flash_attention_float32"]["device_us"] = profile_model_kernel(
+        lambda: FA.flash_attention(*fl, causal=causal, window=window, softcap=softcap),
+        "flash_kernel<")
+    del fl
     sa = ssd_inputs(SSD_PATH, torch.bfloat16, device, seed=99)
     model_times["ssd_scan"]["device_us"] = profile_model_kernel(
         lambda: SS.ssd_scan(*sa, chunk=SSD_PATH[-1]), "ssd_kernel")
     for name, t in model_times.items():
-        print(f"  {name} at {t['shape']} bf16: " + " ".join(
-            f"{k}={v!r}" for k, v in t.items() if k != "shape"))
+        print(f"  {name} at {t['shape']} {t.get('dtype', 'bfloat16')}: " + " ".join(
+            f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
     lap("7")
 
     print("== phase 8: serving path, serve_hymba_1_5b_p2048")
     flash_launches, _ = phase_serve(device)
-    check(flash_launches > 0, "flash_attention was never launched on the serving path")
+    for dtype, n in flash_launches.items():
+        check(n > 0, f"flash_attention ({dtype}) was never launched on the serving path")
     lap("8")
     print("== phase 9: SSD layer, ssd_layer_mamba2_2_7b_s4096")
     ssd_launches, _ = phase_ssd_layer(device)
@@ -1578,7 +1703,10 @@ def main() -> int:
     print(f"  serving and SSD launches: flash_attention={flash_launches} "
           f"ssd_scan={ssd_launches}")
     for name, src, line, n in (
-            ("flash_attention", "flash_attention.cu", "flash_attention.py:127", flash_launches),
+            ("flash_attention", "flash_attention.cu", "flash_attention.py:127",
+             flash_launches["bfloat16"]),
+            ("flash_attention_float32", "flash_attention.cu", "flash_attention.py:127",
+             flash_launches["float32"]),
             ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:102", ssd_launches)):
         t = model_times[name]
         kernels.append(dict(

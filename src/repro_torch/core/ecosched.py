@@ -495,17 +495,18 @@ class EcoSched:
             lam=self.lam, g_free=view.free_units, M=view.alive_units,
             f=cols["f"], lam_f=self.lam_f, bias=bias,
         )
-        _, i = score_reduce(cols["dev"], cols["g"], cols["n"], **kw)
+        # on an idle node the guard's winner (the best non-empty action)
+        # comes from the same launch, taken when row 0, the empty action,
+        # wins: the reference's second, non-empty-masked call
+        guard = None if view.running else cols["nonempty"]
+        out = score_reduce(cols["dev"], cols["g"], cols["n"], guard=guard, **kw)
+        i = out[1]
         if i < 0:  # unreachable: the empty action is always feasible
             return ()
         used_nonempty = False
-        if i == 0 and not view.running:  # row 0 is the empty action
-            _, j = score_reduce(
-                cols["dev"], cols["g"], cols["n"], mask=cols["nonempty"], **kw
-            )
-            if j >= 0:
-                i = j
-                used_nonempty = True
+        if i == 0 and guard is not None and out[2] >= 0:
+            i = out[2]
+            used_nonempty = True
         self._last_decision = (batch, used_nonempty, int(i))
         return batch.action(i)
 

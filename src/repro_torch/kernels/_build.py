@@ -40,9 +40,9 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # dev, g, f, n, bias, mask, B, S, lam, g_free, M, lam_f,
-    # scores, bmin, btot, bidx, best, stream
-    "score_reduce_launch": [_P] * 6 + [_I, _I] + [_F] * 4 + [_P] * 6,
+    # dev, g, f, n, bias, mask, guard, B, S, lam, g_free, M, lam_f,
+    # out, ticket, host_best, stream
+    "score_reduce_launch": [_P] * 7 + [_I, _I] + [_F] * 4 + [_P] * 4,
     # dev, g, f, n, bias, mask, offsets, params, W, S, scores, best, stream
     # (score_reduce_multi and score_reduce_batch)
     "score_reduce_multi_launch": [_P] * 8 + [_I, _I] + [_P] * 3,

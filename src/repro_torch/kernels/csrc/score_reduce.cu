@@ -14,28 +14,32 @@
 // and at most 16 nodes / 42 rows in one score_reduce_batch launch of the
 // 256-node fleet cells), a few hundred KB at most: well under a
 // microsecond of HBM time at 3.35 TB/s, and ~10 flops a row.  So the floor
-// is launch latency: two launches for score_reduce, one for each packed
-// form, and the ints the host reads back for its decisions.  The batch
-// form's own bound is bytes: sum_k B_k * (2S, or 3S with f, + 3) * 4 read
-// and sum_k B_k * 4 written.
+// is launch latency: one launch per call, and the ints the host reads back
+// for its decisions.  The batch form's own bound is bytes:
+// sum_k B_k * (2S, or 3S with f, + 3) * 4 read and sum_k B_k * 4 written.
 //
-// What the design does about it: it keeps the work to the fewest launches
-// that stay deterministic without float atomics.  score_reduce is one thread
-// per row in 256-thread blocks (pass 1 writes scores and one (min score,
-// max sum g, min row) triple per block through warp shuffles and shared
-// memory) and a single-block pass 2 that combines the triples with the same
-// lexicographic compare; that compare is a total order on distinct rows, so
-// the winner does not depend on reduction order.  score_reduce_batch and
-// score_reduce_multi share one single-pass kernel over segments packed on
-// the row axis (int32 offsets, one [lam, g_free, M, lam_f] params row per
-// segment): each node of the batch form, or window of the multi form, gets
-// one block that walks its contiguous row range with a strided loop and
-// combines with the same compare.  That replaces the reference's padded
-// (D, B, S) grid and its scatter-min, needs no second pass and no scratch,
-// and stays correct for a node of any size (a 50,000-row node is one block
-// looping 196 times; the fleet path's nodes fit one block's first step).
-// All use the same row function and compare, so every node or window is
-// bitwise equal to a solo call on it.
+// What the design does about it: one launch per call, deterministic
+// without float atomics.  score_reduce is one kernel: up to 8192 rows (every
+// main-path call) it is one 1024-thread block that walks the rows with a
+// strided loop, writes their scores and reduces two (min score, max sum g,
+// min row) triples through warp shuffles and shared memory -- the argmin
+// over the rows ``mask`` admits and, in the same pass, the one over the rows
+// an optional second mask ``guard`` also admits (EcoSched's idle-node guard,
+// which took a second call before).  Above 8192 rows each block of the grid
+// writes its two triples to scratch and the block that draws the last int
+// ticket combines them (last-block-done); the lexicographic compare is a
+// total order on distinct rows, so the winners do not depend on which
+// block is last.  score_reduce_batch and score_reduce_multi share one
+// single-pass kernel over segments packed on the row axis (int32 offsets,
+// one [lam, g_free, M, lam_f] params row per segment): each node of the
+// batch form, or window of the multi form, gets one block that walks its
+// contiguous row range with a strided loop and combines with the same
+// compare.  That replaces the reference's padded (D, B, S) grid and its
+// scatter-min, needs no second pass and no scratch, and stays correct for
+// a node of any size (a 50,000-row node is one block looping 196 times;
+// the fleet path's nodes fit one block's first step).  All use the same
+// row function and compare, so every node or window is bitwise equal to a
+// solo call on it.
 //
 // Numerics: each row sums its S slots left to right in float32 and applies
 // the reference's operation order
@@ -45,16 +49,18 @@
 // the same column loop, so scores agree bitwise.
 //
 // C interface, bound with ctypes: every pointer and the stream are void*,
-// every count an int; f, bias and mask may be null (all zero, all zero, all
-// feasible).  Each entry returns cudaGetLastError() after its launches.
+// every count an int; f, bias, mask and guard may be null (all zero, all
+// zero, all feasible, no guard).  Each entry returns cudaGetLastError()
+// after its launch.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;          // score_windows_kernel's block
+constexpr int kSoloThreads = 1024;     // score_reduce_kernel's block
+constexpr int kRowsPerBlock = 8192;    // its rows per block
 
 struct Best {
   float score;  // lowest score wins
@@ -101,9 +107,12 @@ __device__ __forceinline__ void row_score(
   *tot = sg;
 }
 
-// Block-wide lexicographic reduction; the result is valid in thread 0.
-__device__ Best block_best(Best mine) {
-  __shared__ Best warp_best[kWarps];
+// Block-wide lexicographic reduction of K candidates per thread over NT
+// threads, the K trees side by side (one pair of __syncthreads()); the
+// results are valid in thread 0.  Safe to call twice in a row (the shared
+// slots are read before the second call's writes, behind its first
+// __syncthreads()).
+__device__ __forceinline__ void warp_best(Best& mine) {
   for (int off = 16; off > 0; off >>= 1) {
     Best o;
     o.score = __shfl_down_sync(0xffffffffu, mine.score, off);
@@ -111,62 +120,97 @@ __device__ Best block_best(Best mine) {
     o.row = __shfl_down_sync(0xffffffffu, mine.row, off);
     if (better(o, mine)) mine = o;
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_best[warp] = mine;
-  __syncthreads();
-  if (warp == 0) {
-    mine = lane < kWarps ? warp_best[lane] : none(0x7fffffff);
-    for (int off = 16; off > 0; off >>= 1) {
-      Best o;
-      o.score = __shfl_down_sync(0xffffffffu, mine.score, off);
-      o.tot = __shfl_down_sync(0xffffffffu, mine.tot, off);
-      o.row = __shfl_down_sync(0xffffffffu, mine.row, off);
-      if (better(o, mine)) mine = o;
-    }
-  }
-  return mine;
 }
 
-__global__ void __launch_bounds__(kThreads) score_rows_kernel(
+template <int NT, int K>
+__device__ void block_best(Best (&mine)[K]) {
+  constexpr int kWarps = NT / 32;
+  __shared__ Best slots[K][kWarps];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    warp_best(mine[k]);
+    if (lane == 0) slots[k][warp] = mine[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      mine[k] = lane < kWarps ? slots[k][lane] : none(0x7fffffff);
+      warp_best(mine[k]);
+    }
+  }
+}
+
+// score_reduce: one launch.  Block k walks rows [k*kRowsPerBlock, ...) with
+// a strided loop, writes their scores and keeps two winners, one over the
+// rows ``mask`` admits and one over those ``guard`` also admits.  With one
+// block (B <= kRowsPerBlock, every main-path call) block 0 writes both
+// winners.  With more, each block writes its two triples to ``part`` and
+// takes an int ticket after a __threadfence(); the block that draws the
+// last ticket combines all triples with the same compare and resets the
+// ticket to 0 for the next call.
+__global__ void __launch_bounds__(kSoloThreads) score_reduce_kernel(
     const float* __restrict__ dev, const float* __restrict__ g,
     const float* __restrict__ f, const float* __restrict__ n,
-    const float* __restrict__ bias, const float* __restrict__ mask, int B,
-    int S, float lam, float g_free, float M, float lam_f,
-    float* __restrict__ scores, float* __restrict__ bmin,
-    float* __restrict__ btot, int* __restrict__ bidx) {
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  Best mine = none(B);
-  if (row < B) {
+    const float* __restrict__ bias, const float* __restrict__ mask,
+    const float* __restrict__ guard, int B, int S, float lam, float g_free,
+    float M, float lam_f, float* __restrict__ scores, int* __restrict__ best,
+    float* part, int* ticket) {
+  const int lo = blockIdx.x * kRowsPerBlock;
+  const int hi = min(B, lo + kRowsPerBlock);
+  Best mine[2] = {none(B), none(B)};  // [0] mask, [1] mask and guard
+  for (int row = lo + threadIdx.x; row < hi; row += kSoloThreads) {
     float sc, tot;
     row_score(dev, g, f, n, bias, mask, S, row, lam, g_free, M, lam_f, &sc,
               &tot);
     scores[row] = sc;
-    mine.score = sc;
-    mine.tot = tot;
-    mine.row = row;
-  }
-  mine = block_best(mine);
-  if (threadIdx.x == 0) {
-    bmin[blockIdx.x] = mine.score;
-    btot[blockIdx.x] = mine.tot;
-    bidx[blockIdx.x] = mine.row;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) combine_kernel(
-    const float* __restrict__ bmin, const float* __restrict__ btot,
-    const int* __restrict__ bidx, int nb, int B, int* __restrict__ best) {
-  Best mine = none(B);
-  for (int i = threadIdx.x; i < nb; i += kThreads) {
     Best o;
-    o.score = bmin[i];
-    o.tot = btot[i];
-    o.row = bidx[i];
-    if (better(o, mine)) mine = o;
+    o.score = sc;
+    o.tot = tot;
+    o.row = row;
+    if (better(o, mine[0])) mine[0] = o;
+    if (guard != nullptr) {
+      if (!(guard[row] > 0.0f)) o.score = CUDART_INF_F;
+      if (better(o, mine[1])) mine[1] = o;
+    }
   }
-  mine = block_best(mine);
-  if (threadIdx.x == 0) *best = isinf(mine.score) ? -1 : mine.row;
+  block_best<kSoloThreads>(mine);
+  if (gridDim.x > 1) {
+    __shared__ bool last;
+    if (threadIdx.x == 0) {
+      float* p = part + 6 * blockIdx.x;
+      for (int k = 0; k < 2; ++k) {
+        p[3 * k + 0] = mine[k].score;
+        p[3 * k + 1] = mine[k].tot;
+        p[3 * k + 2] = __int_as_float(mine[k].row);
+      }
+      __threadfence();
+      last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const volatile float* vp = part;
+    mine[0] = mine[1] = none(B);
+    for (int i = threadIdx.x; i < (int)gridDim.x; i += kSoloThreads) {
+      for (int k = 0; k < 2; ++k) {
+        Best o;
+        o.score = vp[6 * i + 3 * k + 0];
+        o.tot = vp[6 * i + 3 * k + 1];
+        o.row = __float_as_int(vp[6 * i + 3 * k + 2]);
+        if (better(o, mine[k])) mine[k] = o;
+      }
+    }
+    block_best<kSoloThreads>(mine);
+    if (threadIdx.x == 0) *ticket = 0;
+  }
+  if (threadIdx.x == 0) {
+    best[0] = isinf(mine[0].score) ? -1 : mine[0].row;
+    best[1] = isinf(mine[1].score) ? -1 : mine[1].row;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) score_windows_kernel(
@@ -182,7 +226,7 @@ __global__ void __launch_bounds__(kThreads) score_windows_kernel(
   const float g_free = params[4 * w + 1];
   const float M = params[4 * w + 2];
   const float lam_f = params[4 * w + 3];
-  Best mine = none(hi - lo);
+  Best mine[1] = {none(hi - lo)};
   for (int row = lo + threadIdx.x; row < hi; row += kThreads) {
     float sc, tot;
     row_score(dev, g, f, n, bias, mask, S, row, lam, g_free, M, lam_f, &sc,
@@ -192,37 +236,46 @@ __global__ void __launch_bounds__(kThreads) score_windows_kernel(
     o.score = sc;
     o.tot = tot;
     o.row = row - lo;
-    if (better(o, mine)) mine = o;
+    if (better(o, mine[0])) mine[0] = o;
   }
-  mine = block_best(mine);
-  if (threadIdx.x == 0) best[w] = isinf(mine.score) ? -1 : mine.row;
+  block_best<kThreads>(mine);
+  if (threadIdx.x == 0) best[w] = isinf(mine[0].score) ? -1 : mine[0].row;
 }
 
 }  // namespace
 
 extern "C" {
 
-// scores (B,), best (1,); scratch bmin/btot/bidx hold ceil(B/256) entries.
+// score_reduce: one launch.  out holds B float scores, then the two int
+// winners (mask; mask and guard; -1 where none, and the second -1 when
+// guard is null), then, when B > kRowsPerBlock, 6 words of scratch per
+// block (ceil(B / kRowsPerBlock) blocks); ticket is a zeroed int of the
+// device, used and reset only when there is more than one block.  With a
+// host (pinned) pointer host_best the two winners are also copied there
+// and the stream synchronised before the return; null leaves the call
+// asynchronous.
+
 int score_reduce_launch(const void* dev, const void* g, const void* f,
                         const void* n, const void* bias, const void* mask,
-                        int B, int S, float lam, float g_free, float M,
-                        float lam_f, void* scores, void* bmin, void* btot,
-                        void* bidx, void* best, void* stream) {
-  const int nb = (B + kThreads - 1) / kThreads;
+                        const void* guard, int B, int S, float lam,
+                        float g_free, float M, float lam_f, void* out,
+                        void* ticket, void* host_best, void* stream) {
+  const int nb = B <= kRowsPerBlock ? 1 : (B + kRowsPerBlock - 1) / kRowsPerBlock;
+  float* scores = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  score_rows_kernel<<<nb, kThreads, 0, st>>>(
+  score_reduce_kernel<<<nb, kSoloThreads, 0, st>>>(
       static_cast<const float*>(dev), static_cast<const float*>(g),
       static_cast<const float*>(f), static_cast<const float*>(n),
-      static_cast<const float*>(bias), static_cast<const float*>(mask), B, S,
-      lam, g_free, M, lam_f, static_cast<float*>(scores),
-      static_cast<float*>(bmin), static_cast<float*>(btot),
-      static_cast<int*>(bidx));
+      static_cast<const float*>(bias), static_cast<const float*>(mask),
+      static_cast<const float*>(guard), B, S, lam, g_free, M, lam_f, scores,
+      reinterpret_cast<int*>(scores + B), scores + B + 2,
+      static_cast<int*>(ticket));
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  combine_kernel<<<1, kThreads, 0, st>>>(
-      static_cast<const float*>(bmin), static_cast<const float*>(btot),
-      static_cast<const int*>(bidx), nb, B, static_cast<int*>(best));
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess || host_best == nullptr) return static_cast<int>(err);
+  err = cudaMemcpyAsync(host_best, scores + B, 2 * sizeof(int),
+                        cudaMemcpyDeviceToHost, st);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(st);
+  return static_cast<int>(err);
 }
 
 // Segments packed on the row axis (the windows of score_reduce_multi, the

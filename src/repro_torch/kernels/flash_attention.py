@@ -11,9 +11,14 @@ head ``j // G``:
 in float32 whatever the input type (float32 or bfloat16); the output has
 q's type.  Positions count from 0 on both axes, as in the reference.
 
-On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
+On a CUDA tensor :func:`flash_attention` launches a hand-written kernel
 of ``csrc/flash_attention.cu`` (built at first use by ``_build``) or
-raises; it never falls back.  On a CPU tensor it runs
+raises; it never falls back.  The input type picks the kernel: bfloat16
+(the serving type) runs ``flash_kernel_wgmma``, both products on the
+tensor cores (``wgmma``, bf16 in, float32 accumulation, P rounded to
+bf16 for P·V), every head dim of :data:`HEAD_DIMS`; float32 runs
+``flash_kernel``, float32 FMAs on the CUDA cores, since TF32 products
+would miss the float32 tolerance.  On a CPU tensor it runs
 :func:`flash_attention_plain`, the materialised-scores definition (the
 reference's ``ref.flash_attention_ref``).  Only a kernel launch counts in
 ``STATS``.
@@ -105,6 +110,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:  # the bf16 kernel copies 16-byte chunks
+            raise ValueError(f"{name} must be 16-byte aligned")
     if Skv == 0:
         raise ValueError("flash_attention needs at least one key")
     out = torch.empty_like(q)

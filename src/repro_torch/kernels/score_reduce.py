@@ -12,6 +12,13 @@ with +inf where ``mask`` is 0, followed by the argmin under EcoSched's
 tie-break: lowest score, then largest total unit count, then earliest
 row; -1 when no row is feasible.
 
+``score_reduce(..., guard=g)`` also returns, from the same pass, the
+argmin over the rows that ``g`` admits as well (a value > 0): exactly
+what a second call with ``mask=mask & g`` would return.  EcoSched's
+idle-node guard (take the best non-empty action when the empty action
+wins on an idle node) needs both winners, and gets them from one launch
+and one read of two ints.
+
 ``score_reduce_batch`` reduces many nodes' blocks in one launch (the
 fleet path's same-instant bursts) and ``score_reduce_multi`` many small
 windows; both take the rows of all their nodes or windows packed on the
@@ -38,7 +45,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-_BLOCK = 256  # rows per block of the CUDA kernel (csrc kThreads)
+_ROWS_PER_BLOCK = 8192  # score_reduce's rows per block (csrc kRowsPerBlock)
+# per device: the zeroed int ticket of the multi-block combine, and the
+# pinned host pair the winners are copied into
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+_HOST_BEST: Dict[torch.device, torch.Tensor] = {}
 
 
 @dataclass
@@ -50,9 +61,11 @@ class KernelStats:
     max_rows: int = 0
     windows: int = 0  # nodes or windows reduced (1 per solo launch)
     max_windows: int = 0
+    guarded: int = 0  # score_reduce calls that carried a guard
 
-    def add(self, rows: int, windows: int = 1) -> None:
+    def add(self, rows: int, windows: int = 1, guarded: bool = False) -> None:
         self.launches += 1
+        self.guarded += int(guarded)
         self.rows += rows
         self.max_rows = max(self.max_rows, rows)
         self.windows += windows
@@ -75,7 +88,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _check_block(dev, g, n, f, bias, mask) -> Tuple[int, int]:
+def _check_block(dev, g, n, f, bias, mask, guard=None) -> Tuple[int, int]:
     """Validate a (B, S) block and its (B,) columns; returns (B, S)."""
     if not isinstance(dev, torch.Tensor) or dev.dim() != 2:
         raise TypeError("dev must be a (B, S) torch tensor")
@@ -83,6 +96,7 @@ def _check_block(dev, g, n, f, bias, mask) -> Tuple[int, int]:
     for name, t, shape in (
         ("dev", dev, (B, S)), ("g", g, (B, S)), ("f", f, (B, S)),
         ("n", n, (B,)), ("bias", bias, (B,)), ("mask", mask, (B,)),
+        ("guard", guard, (B,)),
     ):
         if t is None:
             continue
@@ -152,14 +166,19 @@ def _pick_plain(scores: torch.Tensor, tot: torch.Tensor) -> int:
 
 
 def score_reduce_plain(dev, g, n, *, lam, g_free, M, f=None, lam_f=0.0,
-                       bias=None, mask=None) -> Tuple[torch.Tensor, int]:
-    """Plain PyTorch version of :func:`score_reduce` (same arguments)."""
-    _check_block(dev, g, n, f, bias, mask)
+                       bias=None, mask=None, guard=None):
+    """Plain PyTorch version of :func:`score_reduce` (same arguments and
+    result): with ``guard``, what a second call with ``mask & guard``
+    returns is its third item."""
+    _check_block(dev, g, n, f, bias, mask, guard)
     p = torch.tensor([lam, g_free, M, lam_f], dtype=torch.float32,
                      device=dev.device)
     scores, tot = _row_scores_plain(dev, g, f, n, bias, mask, p[0], p[1],
                                     p[2], p[3])
-    return scores, _pick_plain(scores, tot)
+    if guard is None:
+        return scores, _pick_plain(scores, tot)
+    guarded = torch.where(guard > 0, scores, torch.full_like(scores, float("inf")))
+    return scores, _pick_plain(scores, tot), _pick_plain(guarded, tot)
 
 
 def score_reduce_multi_plain(dev, g, n, offsets, params, *, f=None,
@@ -211,7 +230,7 @@ def score_reduce_batch_plain(dev, g, n, offsets, params, *, f=None,
 
 
 def score_reduce(dev, g, n, *, lam, g_free, M, f=None, lam_f=0.0,
-                 bias=None, mask=None) -> Tuple[torch.Tensor, int]:
+                 bias=None, mask=None, guard=None):
     """Scores + tie-broken argmin for a (B, S) candidate block.
 
     ``dev``/``g`` (and the optional frequency plane ``f``, weighted by
@@ -219,33 +238,60 @@ def score_reduce(dev, g, n, *, lam, g_free, M, f=None, lam_f=0.0,
     size ``n`` (B,); ``bias`` is an optional per-row additive term and
     ``mask`` (B,) marks feasible rows with a value > 0 (default: all).
     All tensors lie on one device.  Returns (float32 scores (B,), winning
-    row) — the row is -1 when no candidate is feasible.
+    row) — the row is -1 when no candidate is feasible.  With ``guard``
+    (B,) it returns (scores, winning row, guarded winning row), the last
+    the argmin over the rows ``mask`` and ``guard`` both admit (-1 when
+    there is none), from the same launch.
+
+    On the card a call is one launch, one device allocation (the scores
+    and both winners in one buffer; above 8192 rows also the per-block
+    scratch) and one copy of the two winners into a pinned host pair of
+    the device, with a stream sync, inside the same C call.  The ticket
+    and the pair are per device, so calls on one device are made from
+    one thread.
     """
-    B, S = _check_block(dev, g, n, f, bias, mask)
+    B, S = _check_block(dev, g, n, f, bias, mask, guard)
     if _device_kind(dev) == "cpu":
         return score_reduce_plain(dev, g, n, lam=lam, g_free=g_free, M=M,
-                                  f=f, lam_f=lam_f, bias=bias, mask=mask)
-    scores = torch.empty(B, dtype=torch.float32, device=dev.device)
+                                  f=f, lam_f=lam_f, bias=bias, mask=mask,
+                                  guard=guard)
     if B == 0:
-        return scores, -1
+        scores = torch.empty(0, dtype=torch.float32, device=dev.device)
+        return (scores, -1) if guard is None else (scores, -1, -1)
     from repro_torch.kernels._build import library
 
-    lib = library()
-    nb = -(-B // _BLOCK)
-    bmin = torch.empty(nb, dtype=torch.float32, device=dev.device)
-    btot = torch.empty(nb, dtype=torch.float32, device=dev.device)
-    bidx = torch.empty(nb, dtype=torch.int32, device=dev.device)
-    best = torch.empty(1, dtype=torch.int32, device=dev.device)
+    nb = -(-B // _ROWS_PER_BLOCK)
+    out = torch.empty(B + 2 + (6 * nb if nb > 1 else 0), dtype=torch.float32,
+                      device=dev.device)
+    ticket = _ticket(dev.device) if nb > 1 else None
+    host = _host_pair(dev.device)
     stream = torch.cuda.current_stream(dev.device).cuda_stream
-    err = lib.score_reduce_launch(
+    # the launch, the copy of the two winners into pinned host memory and
+    # the stream sync, all in the one C call
+    err = library().score_reduce_launch(
         _ptr(dev), _ptr(g), _ptr(f), _ptr(n), _ptr(bias), _ptr(mask),
-        B, S, float(lam), float(g_free), float(M), float(lam_f),
-        _ptr(scores), _ptr(bmin), _ptr(btot), _ptr(bidx), _ptr(best),
-        ctypes.c_void_p(stream),
+        _ptr(guard), B, S, float(lam), float(g_free), float(M), float(lam_f),
+        out.data_ptr(), _ptr(ticket), host.data_ptr(), ctypes.c_void_p(stream),
     )
     _raise_on(err, "score_reduce launch")
-    STATS["score_reduce"].add(B)
-    return scores, int(best.item())
+    STATS["score_reduce"].add(B, guarded=guard is not None)
+    best, best_guard = host.tolist()
+    scores = out[:B]
+    return (scores, best) if guard is None else (scores, best, best_guard)
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The device's zeroed int ticket (the kernel's last block resets it)."""
+    if device not in _TICKETS:
+        _TICKETS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[device]
+
+
+def _host_pair(device: torch.device) -> torch.Tensor:
+    """The device's pinned host pair that the two winners are copied to."""
+    if device not in _HOST_BEST:
+        _HOST_BEST[device] = torch.empty(2, dtype=torch.int32, pin_memory=True)
+    return _HOST_BEST[device]
 
 
 def _check_windows(offsets, params, dev) -> Tuple[torch.Tensor, int]:

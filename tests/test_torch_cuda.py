@@ -43,6 +43,29 @@ def test_score_reduce_kernel_matches_plain(device, B):
     assert torch.equal(s_k, s_p)
 
 
+@pytest.mark.parametrize("B", [1, 255, 1321, 8192, 8193, 70000])
+def test_score_reduce_guard_kernel_matches_plain(device, B):
+    """One launch gives both winners, bitwise the plain version's, on
+    both sides of the one-block threshold (8192 rows), and the
+    multi-block combine leaves its ticket at 0 for the next call."""
+    from repro_torch.kernels import score_reduce as K
+
+    rng = np.random.default_rng(B + 1)
+    dev, g, n, mask = _block(rng, B, 4, device)
+    guard = (n > 0).float()
+    kw = dict(lam=0.35, g_free=16, M=16, mask=mask, guard=guard)
+    before = (K.STATS["score_reduce"].launches, K.STATS["score_reduce"].guarded)
+    for _ in range(2):  # the second call finds the ticket reset
+        s_k, b_k, j_k = K.score_reduce(dev, g, n, **kw)
+        s_p, b_p, j_p = K.score_reduce_plain(dev, g, n, **kw)
+        assert (b_k, j_k) == (b_p, j_p)
+        assert torch.equal(s_k, s_p)
+    after = (K.STATS["score_reduce"].launches, K.STATS["score_reduce"].guarded)
+    assert after == (before[0] + 2, before[1] + 2)
+    _, _, j_dead = K.score_reduce(dev, g, n, **dict(kw, guard=torch.zeros_like(guard)))
+    assert j_dead == -1
+
+
 def test_score_reduce_multi_kernel_matches_solo(device):
     from repro_torch.kernels import score_reduce as K
 
@@ -142,7 +165,13 @@ def test_fleet_stages_through_the_batch_kernel(device):
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("shape", [(2, 192, 6, 2, 64, 96, 20.0, True),
-                                   (1, 300, 8, 4, 128, 0, 0.0, False)])
+                                   (1, 300, 8, 4, 128, 0, 0.0, False),
+                                   # the other head dims: non-causal, ragged
+                                   # S, softcap (bf16 takes the wgmma kernel)
+                                   (1, 300, 4, 2, 16, 0, 25.0, False),
+                                   (1, 300, 4, 2, 32, 0, 25.0, False),
+                                   (1, 300, 4, 2, 96, 0, 25.0, False),
+                                   (1, 300, 4, 2, 256, 0, 25.0, False)])
 def test_flash_attention_kernel_matches_plain(device, shape, dtype, tol):
     from repro_torch.kernels import flash_attention as FA
 

@@ -278,3 +278,132 @@ def test_build_is_keyed_on_sources_and_needs_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.nvcc()
+
+
+# ---------------------------------------------------------------------------
+# The guarded form: both argmins of the idle-node guard from one call
+# ---------------------------------------------------------------------------
+
+
+def guarded_block(seed, B, S=4, ties=False):
+    """A seeded (B, S) block with bias, f plane, mask and guard columns;
+    ``ties`` draws from so few values that many rows tie exactly."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, S + 1, B).astype(np.float32)
+    slot = np.arange(S)[None, :] < n[:, None]
+    if ties:
+        dev = np.where(slot, rng.integers(0, 2, (B, S)) * 0.5, 0)
+    else:
+        dev = np.where(slot, rng.uniform(0, 2, (B, S)), 0)
+    g = np.where(slot, rng.integers(1, 3 if ties else 5, (B, S)), 0)
+    f = np.where(slot, rng.integers(0, 3, (B, S)), 0)
+    return dict(dev=dev.astype(np.float32), g=g.astype(np.float32), n=n,
+                f=f.astype(np.float32),
+                bias=rng.uniform(0, 0.3, B).astype(np.float32),
+                mask=(rng.uniform(size=B) > 0.2).astype(np.float32),
+                guard=(n > 0).astype(np.float32))
+
+
+def port_call(blk, *, guard=True, **opts):
+    keys = ("f", "bias", "mask")
+    dev, g, n, gd = tensors(blk["dev"], blk["g"], blk["n"], blk["guard"])
+    kw = {k: tensors(blk[k])[0] for k in keys if opts.get(k, True)}
+    args = dict(lam=LAM, g_free=6, M=8, lam_f=0.25 if "f" in kw else 0.0)
+    return P.score_reduce(dev, g, n, guard=gd if guard else None, **kw, **args), kw, args
+
+
+@pytest.mark.parametrize("case", ["plain", "f+bias", "mask", "ties", "dead_guard",
+                                  "dead_mask", "one_row", "large"])
+def test_guarded_plain_equals_two_plain_calls(case):
+    """Scores and both winners of one guarded call are bitwise what two
+    plain calls return: one with ``mask``, one with ``mask & guard``."""
+    B = {"one_row": 1, "large": 9000}.get(case, 300)
+    blk = guarded_block(len(case), B, ties=case == "ties")
+    opts = dict(f=case in ("f+bias", "large"),
+                bias=case in ("f+bias", "large"),
+                mask=case not in ("plain", "f+bias", "ties"))
+    if case == "dead_guard":
+        blk["guard"][:] = 0.0
+    if case == "dead_mask":
+        blk["mask"][:] = 0.0
+    (scores, best, best_g), kw, args = port_call(blk, **opts)
+    dev, g, n, gd = tensors(blk["dev"], blk["g"], blk["n"], blk["guard"])
+    s1, b1 = P.score_reduce_plain(dev, g, n, **kw, **args)
+    mask = kw.get("mask")
+    both_mask = gd if mask is None else gd * mask
+    s2, b2 = P.score_reduce_plain(dev, g, n, **dict(kw, mask=both_mask), **args)
+    assert torch.equal(scores, s1)
+    assert (best, best_g) == (b1, b2)
+    assert torch.equal(torch.where(gd > 0, scores, torch.full_like(scores, float("inf"))), s2)
+    if case == "dead_guard" or case == "dead_mask":
+        assert best_g == -1
+    if case == "dead_mask":
+        assert best == -1
+    if case == "ties":
+        fin = scores[torch.isfinite(scores)]
+        assert int((fin == fin.min()).sum()) > 1  # the tie-break decided
+
+
+def test_guarded_empty_block():
+    z = torch.zeros((0, 3))
+    out = P.score_reduce(z, z, torch.zeros(0), lam=LAM, g_free=4, M=4,
+                         guard=torch.zeros(0))
+    assert out[0].numel() == 0 and out[1:] == (-1, -1)
+    assert P.score_reduce_plain(z, z, torch.zeros(0), lam=LAM, g_free=4, M=4,
+                                guard=torch.zeros(0))[1:] == (-1, -1)
+
+
+@pytest.mark.parametrize("mode", ["ref", "interpret"])
+@pytest.mark.parametrize("seed", [2, 6])
+def test_guarded_matches_reference_two_calls(mode, seed):
+    """One guarded port call against the reference's idle-guard sequence:
+    a call, then a second with the non-empty mask, on the same window."""
+    ref, port, view = window_pair(seed, lam_f=0.25)
+    dev, g, n = port.padded_cols()
+    rng = np.random.default_rng(seed)
+    bias = rng.uniform(0.0, 0.5, len(port)).astype(np.float32)
+    f = rng.integers(0, 3, dev.shape).astype(np.float32)
+    nonempty = (n > 0).astype(np.float32)
+    args = dict(lam=LAM, g_free=view.free_units, M=view.total_units, lam_f=0.25)
+    s_ref, b_ref = R.score_reduce(dev, g, n, f=f, bias=bias, mode=mode, **args)
+    _, j_ref = R.score_reduce(dev, g, n, f=f, bias=bias, mask=nonempty,
+                              mode=mode, **args)
+    tdev, tg, tn, tf, tbias, tguard = tensors(dev, g, n, f, bias, nonempty)
+    s, b, j = P.score_reduce(tdev, tg, tn, f=tf, bias=tbias, guard=tguard, **args)
+    assert np.max(np.abs(np.asarray(s_ref) - s.numpy())) <= TOL
+    assert (b, j) == (b_ref, j_ref)
+
+
+def test_idle_node_guard_is_one_call(monkeypatch):
+    """An idle node whose best row is the empty action: the torch engine
+    makes one score_reduce call, with the guard, and launches the best
+    non-empty action, as ``engine="vector"`` does."""
+    import repro_torch.core.ecosched as E
+    from repro_torch.core import EcoSched, ProfiledPerfModel
+    from repro_torch.core.types import JobProfile
+
+    # the min-energy mode (4 units) does not fit the 2 live units, and the
+    # 1-unit mode's energy deviation (0.3) outweighs λ·G_free/M: empty wins
+    truth = {"a": JobProfile(name="a", runtime={1: 130.0, 4: 100.0},
+                             busy_power={1: 600.0, 4: 600.0})}
+    view = NodeView(t=0.0, total_units=4, domains=2, free_units=2, running=[],
+                    free_map=[True, True, False, False], domain_jobs=[0, 0],
+                    dead_units=2)
+    calls = []
+    real = E.score_reduce
+
+    def counting(*a, **kw):
+        calls.append(kw.get("guard") is not None)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(E, "score_reduce", counting)
+    out = {}
+    for engine in ("torch", "vector"):
+        extra = {"device": "cpu"} if engine == "torch" else {}
+        pol = EcoSched(ProfiledPerfModel(truth, noise=0.0, seed=0), lam=LAM,
+                       tau=0.45, engine=engine, cache=False, **extra)
+        out[engine] = pol.on_event(view, ["a"])
+        assert pol._last_decision[1]  # the guard chose the row
+        assert pol._last_decision[0].n_jobs[pol._last_decision[2]] > 0
+    assert calls == [True]
+    assert out["torch"] == out["vector"] and out["torch"]
