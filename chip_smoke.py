@@ -25,13 +25,17 @@ plain blocked-attention route; ``ssd_forward(use_pallas=True)`` runs one
 full-width mamba2-2.7b layer through ``ssd_scan`` (cell
 ``ssd_layer_mamba2_2_7b_s4096``) against the chunked form.
 
-Phases: 1 device and build (and the tensor-core instructions in the bf16
-flash kernel's SASS), 2 kernels vs plain versions, 3 paper node, 4
+Phases: 1 device and build (and the tensor-core instructions in the SASS
+of the bf16 flash and ssd kernels), 2 kernels vs plain versions, 3 paper node, 4
 elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer.
 ``score_reduce`` carries the idle-node guard in its one launch
-(``guard=``); phases 3-5 print its guarded calls.  The last two lines
-are the kernels' JSON record (the float32 flash kernel has its own entry,
-``flash_attention_float32``) and
+(``guard=``); phases 3-5 print its guarded calls, and phase 6 the
+guarded segments of the packed launches, one per staged burst.
+``ssd_scan`` runs four kernels a call (C.B^T once per chunk, the chunk
+states in parallel, the serial state pass, the outputs) on the tensor
+cores.  The last two lines are the kernels' JSON record (the float32
+flash and ssd kernels have their own entries, ``flash_attention_float32``
+and ``ssd_scan_float32``) and
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
 code is non-zero; without a CUDA device, or without the repository
 around it, the script exits 2 and prints no result.  It imports nothing
@@ -86,6 +90,10 @@ SSD_CASES = (
     (1, 128, 4, 32, 64, 128),
     (2, 4096, 80, 64, 128, 256),  # mamba2-2.7b layer
     (4, 2048, 50, 64, 16, 256),  # hymba-1.5b's SSD heads
+    # the kernels' edges: one chunk (S = Q), chunk 1024, hp 128 with N 128,
+    # N 16, and a chunk and a state size off the 16-row tiles
+    (1, 256, 4, 32, 64, 256), (1, 2048, 4, 64, 64, 1024), (2, 512, 8, 128, 128, 256),
+    (2, 512, 8, 32, 16, 128), (2, 192, 3, 64, 40, 96),
 )
 SSD_TOL = 2e-4
 FLASH_PATH, SSD_PATH = FLASH_CASES[8], SSD_CASES[4]  # phase 7's timed shapes
@@ -361,6 +369,43 @@ def batch_vs_plain(diff, reqs, device, tag):
     return b_k
 
 
+def guarded_vs_plain(diff, reqs, device, tag, name):
+    """``name`` (``score_reduce_multi`` or ``score_reduce_batch``) with the
+    idle-node guard (the non-empty rows) on every other segment: scores
+    and both winners of every segment bitwise its plain version's, and
+    equal to the two kernel calls the guard replaces, one as asked and one
+    masked with ``mask & guard``; one launch, its guarded segments counted."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import score_reduce as K
+
+    reqs = [dict(r, guard=np.asarray(r["n"]) > 0) if k % 2 == 0 and "guard" not in r
+            else r for k, r in enumerate(reqs)]
+    fn, plain_fn = getattr(K, name), getattr(K, name + "_plain")
+    packed = K.pack_windows(reqs, device)
+    st = K.STATS[name]
+    before = (st.launches, st.guarded)
+    s_k, b_k, j_k = fn(**packed)
+    check((st.launches, st.guarded) == (before[0] + 1, before[1] + packed["guarded"]),
+          f"{name} {tag}: a guarded call is not one launch with its guarded segments")
+    s_p, b_p, j_p = plain_fn(**packed)
+    check(b_k == b_p and j_k == j_p, f"{name} {tag}+guard: winners differ from plain")
+    diff.scores(name, s_k, s_p, tag + "+guard")
+    plain = [{k: v for k, v in r.items() if k != "guard"} for r in reqs]
+    s_1, b_1 = fn(**K.pack_windows(plain, device))
+    masked = []
+    for r, q in zip(reqs, plain):
+        both = np.asarray(r.get("guard", np.zeros(len(r["n"]), bool)), bool)
+        if q.get("mask") is not None:
+            both = both & np.asarray(q["mask"], bool)
+        masked.append(dict(q, mask=both))
+    _, j_2 = fn(**K.pack_windows(masked, device))
+    check(torch.equal(s_k, s_1) and b_k == b_1 and j_k == j_2,
+          f"{name} {tag}+guard: not the two calls it replaces")
+    check(all(j == -1 for r, j in zip(reqs, j_k) if "guard" not in r),
+          f"{name} {tag}+guard: a segment without a guard gave a guarded winner")
+
+
 def ragged_node_reqs(rng, sizes, *, f, bias, mask):
     """One seeded request per node: B_k rows (ragged, 0 included) of S_k
     slots (1 to 8), zero past each row's size, per-node scalars."""
@@ -435,6 +480,7 @@ def phase_kernels(device) -> Diff:
     dead = dict(reqs[3], mask=np.zeros(len(reqs[3]["n"]), bool))
     multi = [empty] + reqs[:40] + [dead, empty] + reqs[40:]
     multi_vs_plain(diff, multi, device, "engine windows")
+    guarded_vs_plain(diff, multi, device, "engine windows", "score_reduce_multi")
     # synthetic blocks around the 256-row block edge of the packed kernels
     # and the one-block edge of score_reduce (8192 rows), and far beyond;
     # every block also with the guard (its non-empty rows)
@@ -492,11 +538,19 @@ def phase_kernels(device) -> Diff:
             reqs = ragged_node_reqs(rng, sizes, f=f, bias=bias, mask=mask)
             bests = batch_vs_plain(diff, reqs, device, f"D{D}f{f}b{bias}m{mask}")
             check(D == 1 or bests[0] == -1, "an empty node must give -1")
+            if mask:
+                guarded_vs_plain(diff, reqs, device, f"D{D}f{f}b{bias}m{mask}",
+                                 "score_reduce_batch")
     edge = ragged_node_reqs(rng, [0, 300, 300, 0], f=True, bias=True, mask=False)
     edge[2]["mask"] = np.zeros(300, bool)  # all-infeasible node
     check(batch_vs_plain(diff, edge, device, "edges")[::2] == [-1, -1],
           "empty and all-masked nodes must give -1")
     check(batch_vs_plain(diff, edge[:1], device, "D1 B0") == [-1], "D=1, B=0")
+    # empty, all-masked and all-guard-masked nodes with the guard
+    edge[0]["guard"] = np.zeros(0, bool)
+    edge[1]["guard"] = np.zeros(300, bool)
+    for name in ("score_reduce_batch", "score_reduce_multi"):
+        guarded_vs_plain(diff, edge, device, "edges", name)
     if device.type == "cuda":  # a fault during the runs surfaces here
         torch.cuda.synchronize()
     return diff
@@ -538,8 +592,10 @@ def phase_model_kernels(device):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SS
 
-    # "flash_attention" is the bf16 (wgmma) kernel, the float32 one its own
-    err = {"flash_attention": 0.0, "flash_attention_float32": 0.0, "ssd_scan": 0.0}
+    # "flash_attention" is the bf16 (wgmma) kernel, the float32 one its own;
+    # "ssd_scan" the bf16 instantiation of the ssd kernels, float32 its own
+    err = {"flash_attention": 0.0, "flash_attention_float32": 0.0, "ssd_scan": 0.0,
+           "ssd_scan_float32": 0.0}
     hds = set()
     for i, case in enumerate(FLASH_CASES):
         window, softcap, causal = case[5:]
@@ -575,8 +631,39 @@ def phase_model_kernels(device):
             check(torch.allclose(y, yp, atol=SSD_TOL, rtol=SSD_TOL)
                   and torch.allclose(h, hp, atol=SSD_TOL, rtol=SSD_TOL),
                   f"ssd_scan {case} {name}: max abs err {d} (tol {SSD_TOL})")
-            err["ssd_scan"] = max(err["ssd_scan"], d)
+            key = "ssd_scan" if name == "bfloat16" else "ssd_scan_float32"
+            err[key] = max(err[key], d)
             print(f"  ssd_scan {case} {name}: max_abs_err={d!r}")
+    # steep decays, as trained models have them (A_log up to log 16): a
+    # 64-row tile then spans exp(-100) and more
+    case = (2, 512, 8, 64, 128, 256)
+    for name in ("float32", "bfloat16"):
+        x, dt, A, Bm, Cm = ssd_inputs(case, getattr(torch, name), device, seed=7)
+        dt, A = dt * 5.0, A * 4.0  # dt in [0.005, 0.5], A in [-16, -2]
+        y, h = SS.ssd_scan(x, dt, A, Bm, Cm, chunk=case[-1])
+        yp, hp = SS.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=case[-1])
+        d = max(float((y - yp).abs().max()), float((h - hp).abs().max()))
+        check(torch.allclose(y, yp, atol=SSD_TOL, rtol=SSD_TOL)
+              and torch.allclose(h, hp, atol=SSD_TOL, rtol=SSD_TOL),
+              f"ssd_scan {case} {name} steep decay: max abs err {d} (tol {SSD_TOL})")
+        key = "ssd_scan" if name == "bfloat16" else "ssd_scan_float32"
+        err[key] = max(err[key], d)
+        print(f"  ssd_scan {case} {name} steep decay: max_abs_err={d!r}")
+    check({c[3] for c in SSD_CASES} == set(SS.HEAD_DIMS),
+          f"ssd cases miss head dims {set(SS.HEAD_DIMS) - {c[3] for c in SSD_CASES}}")
+    # planted fault: the state hand-off dropped, every chunk of the kernel
+    # scanned from a zero state, must fail the check
+    B, S, nh, hp, N, Q = SSD_PATH
+    x, dt, A, Bm, Cm = ssd_inputs(SSD_PATH, torch.bfloat16, device, seed=0)
+    bad = torch.cat([SS.ssd_scan(x[:, c:c + Q].contiguous(), dt[:, c:c + Q].contiguous(), A,
+                                 Bm[:, c:c + Q].contiguous(), Cm[:, c:c + Q].contiguous(),
+                                 chunk=Q)[0] for c in range(0, S, Q)], dim=1)
+    want = SS.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=Q)[0]
+    d = float((bad - want).abs().max())
+    check(not torch.allclose(bad, want, atol=SSD_TOL, rtol=SSD_TOL),
+          f"ssd_scan: the check missed the planted fault (state hand-off dropped), {d}")
+    print(f"  ssd_scan {SSD_PATH} bfloat16, state hand-off dropped (planted fault): "
+          f"max_abs_err={d!r}, caught")
     if device.type == "cuda":
         torch.cuda.synchronize()
     return err
@@ -858,6 +945,47 @@ class LargestBatch:
         CL.score_reduce_batch = self.real
 
 
+class BurstLaunches:
+    """Counts the packed launches each staged burst of the fleet
+    coordinator makes (``ClusterRun._stage_arrival_batch`` and
+    ``_stage_complete_batch``), from the wrappers' own counts: with the
+    idle-node guard folded into the packed launch, a burst makes at most
+    one, and no second round."""
+
+    def __init__(self):
+        self.per_burst = []
+
+    def __enter__(self):
+        import repro_torch.core.cluster as CL
+        from repro_torch.kernels import score_reduce as K
+
+        self.real = {m: getattr(CL.ClusterRun, m)
+                     for m in ("_stage_arrival_batch", "_stage_complete_batch")}
+        per_burst = self.per_burst
+
+        def packed():
+            return K.STATS["score_reduce_batch"].launches + K.STATS["score_reduce_multi"].launches
+
+        def wrap(real):
+            def staging(run, *a, **kw):
+                n0 = packed()
+                try:
+                    return real(run, *a, **kw)
+                finally:
+                    per_burst.append(packed() - n0)
+            return staging
+
+        for m, real in self.real.items():
+            setattr(CL.ClusterRun, m, wrap(real))
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.core.cluster as CL
+
+        for m, real in self.real.items():
+            setattr(CL.ClusterRun, m, real)
+
+
 def fleet_leg(cell, engine, device, *, hier, staged=True, path=None):
     """One run of a fleet cell through the user entry points.  ``cell`` is
     "arrivals" (``Cluster.simulate``) or "elastic" (``Cluster.open_run``
@@ -921,7 +1049,8 @@ def phase_fleet(device, path):
     engine, hierarchical against flat dispatch, batched against solo;
     then the arrivals cell once more under the profiler."""
     out = {}
-    with LargestBatch(path):
+    bursts = BurstLaunches()
+    with LargestBatch(path), bursts:
         for cell, legs in (
             # the engines in turns (torch, vector, vector, torch), so a
             # slow stretch of the shared host hits both
@@ -953,6 +1082,7 @@ def phase_fleet(device, path):
                         c = counts[k]
                         n = max(c["launches"], 1)
                         print(f"    {k}: launches={c['launches']} "
+                              f"guarded_segments={c['guarded']} "
                               f"nodes_or_windows_per_launch max={c['max_windows']} "
                               f"mean={c['windows'] / n!r} rows_per_launch "
                               f"max={c['max_rows']} mean={c['rows'] / n!r}")
@@ -968,8 +1098,16 @@ def phase_fleet(device, path):
             for k in ("score_reduce_batch", "score_reduce_multi"):
                 check(counts[k]["launches"] > 0,
                       f"{cell} cell ({'hier' if hier else 'flat'}) launched no {k}")
+    # the idle-node guard rides in the burst's one packed launch: no burst
+    # makes a second, and the guard is carried
+    launched = [n for n in bursts.per_burst if n]
+    print(f"  staged bursts that launched: {len(launched)}, packed launches per burst "
+          f"max={max(launched, default=0)} (second rounds: {sum(n - 1 for n in launched)})")
+    check(launched and max(launched) == 1, "a staged burst made more than one packed launch")
     arr = out[("arrivals", "torch", True, True)]
     check(sum(p.stage_served for p in arr[1]) > 0, "arrivals cell served no staged decision")
+    check(arr[2]["score_reduce_batch"]["guarded"] > 0 and arr[2]["score_reduce_multi"]["guarded"] > 0,
+          "arrivals cell carried no idle-node guard in its packed launches")
     el = out[("elastic", "torch", True, True)]
     check(sum(p.resize_stage_served for p in el[1]) > 0,
           "elastic cell served no staged resize")
@@ -1090,10 +1228,14 @@ def time_solo(device, B, batch, g_free, M, lam_f):
 
 
 def time_packed(device, name, p):
-    """The same three times for ``score_reduce_multi`` or
-    ``score_reduce_batch`` (one kernel, one block per packed segment) on
-    packed device inputs as the path passed them; packing and upload stay
-    outside the timed launches."""
+    """The same times for ``score_reduce_multi`` or ``score_reduce_batch``
+    (one kernel, one block per packed segment) on packed device inputs as
+    the path passed them, with the idle-node guard on every segment (its
+    non-empty rows) as the fleet's idle nodes carry it: raw launches
+    between CUDA events (``ms``), the plain version, and the wrapper's
+    host-clock call with its in-call read of the winners, without and with
+    the guard (``call_us``, ``guarded_call_us``).  Packing and upload stay
+    outside the timed calls."""
     import ctypes
 
     import torch
@@ -1103,8 +1245,9 @@ def time_packed(device, name, p):
     lib = _build.library()
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     (rows, S), W = p["dev"].shape, p["params"].shape[0]
-    out_s = torch.empty(rows, device=device)
-    out_b = torch.empty(W, dtype=torch.int32, device=device)
+    p = {k: v for k, v in p.items() if k not in ("guard", "guarded")}
+    guard = (p["n"] > 0).float()
+    out = torch.empty(rows + 2 * W, device=device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -1112,21 +1255,23 @@ def time_packed(device, name, p):
     def raw():
         err = lib.score_reduce_multi_launch(
             ptr(p["dev"]), ptr(p["g"]), ptr(p["f"]), ptr(p["n"]), ptr(p["bias"]),
-            ptr(p["mask"]), ptr(p["offsets"]), ptr(p["params"]), W, S,
-            out_s.data_ptr(), out_b.data_ptr(), stream)
+            ptr(p["mask"]), guard.data_ptr(), ptr(p["offsets"]), ptr(p["params"]), W, rows,
+            S, out.data_ptr(), None, stream)
         check(err == 0, f"raw {name} launch error {err}")
 
     planes = 2 + (p["f"] is not None)
-    cols_in = 1 + (p["bias"] is not None) + (p["mask"] is not None)
-    # each input read once (planes, columns, offsets, params), scores and
-    # one winner per segment written once
+    cols_in = 2 + (p["bias"] is not None) + (p["mask"] is not None)
+    # each input read once (planes, columns with the guard, offsets,
+    # params), scores and two winners per segment written once
     n_bytes = (4 * (planes * rows * S + cols_in * rows + (W + 1) + 4 * W)
-               + 4 * (rows + W))
-    bms, bby = bound_ms(n_bytes, rows * (3 * S + 9))
+               + 4 * (rows + 2 * W))
+    bms, bby = bound_ms(n_bytes, rows * (3 * S + 10))
+    fn = getattr(K, name)
     return dict(
         B=rows, S=S, ms=cuda_ms(raw, 2000),
-        plain_ms=cuda_ms(lambda: getattr(K, name + "_plain")(**p), 20),
-        call_us=host_us(lambda: getattr(K, name)(**p), 2000),
+        plain_ms=cuda_ms(lambda: getattr(K, name + "_plain")(**p, guard=guard), 20),
+        call_us=host_us(lambda: fn(**p), 2000),
+        guarded_call_us=host_us(lambda: fn(**p, guard=guard), 2000),
         bound_ms=bms, bound_by=bby,
         **{"D" if name == "score_reduce_batch" else "W": W},
     )
@@ -1184,17 +1329,27 @@ def profile_lines(device, path):
     else:  # one score_reduce call is one launch of one kernel
         solo = [c for k, (c, _) in dev.items() if "score_reduce_kernel" in k]
         check(solo == [reps], f"score_reduce: {solo} kernel launches for {reps} calls")
+        packed_n = [c for k, (c, _) in dev.items() if "score_windows_kernel" in k]
+        check(packed_n == [reps], f"score_reduce_multi: {packed_n} kernel launches for {reps} calls")
     for name, (count, us) in sorted(dev.items()):
         print(f"  profiler device: {name[:60]} count={count} us_per_launch={us / count!r}")
     top = sorted(avgs, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     print("  profiler host, per score_reduce + score_reduce_multi call: " + ", ".join(
         f"{e.key}={e.self_cpu_time_total / reps!r}us" for e in top))
 
-    batch = path.batch[2]  # shares score_windows_kernel, so profiled alone
-    _, avgs = profiled(lambda: [K.score_reduce_batch(**batch) for _ in range(reps)])
-    for name, (count, us) in sorted(device_kernels(avgs).items()):
-        print(f"  profiler device, score_reduce_batch alone: {name[:60]} "
-              f"count={count} us_per_launch={us / count!r}")
+    # shares score_windows_kernel, so profiled alone: with the guard (the
+    # non-empty rows of every node) and without, one launch a call each
+    batch = {k: v for k, v in path.batch[2].items() if k not in ("guard", "guarded")}
+    guard = (batch["n"] > 0).float()
+    for tag, kw in (("", {}), (" with the guard", {"guard": guard})):
+        _, avgs = profiled(lambda: [K.score_reduce_batch(**batch, **kw) for _ in range(reps)])
+        dev = device_kernels(avgs)
+        packed_n = [c for k, (c, _) in dev.items() if "score_windows_kernel" in k]
+        check(not dev or packed_n == [reps],
+              f"score_reduce_batch{tag}: {packed_n} kernel launches for {reps} calls")
+        for name, (count, us) in sorted(dev.items()):
+            print(f"  profiler device, score_reduce_batch alone{tag}: {name[:60]} "
+                  f"count={count} us_per_launch={us / count!r}")
 
     truth, stream = pod_truth(POD_JOBS)
     pol = timed_policy_class()(ProfiledPerfModel(truth, noise=NOISE, seed=SEED),
@@ -1227,9 +1382,9 @@ def phase_timings(device, path, diff):
     kernels = []
     for name, t in rows.items():
         extra = "".join(f" {k}={t[k]}" for k in ("D", "W") if k in t)
-        if "guarded_call_us" in t:
-            extra += (f" guarded_wrapper_call_us={t['guarded_call_us']!r}"
-                      f" launch+read_us: in-call pinned copy {t['launch_read_in_call_us']!r},"
+        extra += f" guarded_wrapper_call_us={t['guarded_call_us']!r}"
+        if "launch_read_in_call_us" in t:
+            extra += (f" launch+read_us: in-call pinned copy {t['launch_read_in_call_us']!r},"
                       f" tolist {t['launch_read_tolist_us']!r}")
         print(f"  {name} at B={t['B']} S={t['S']}{extra}: "
               f"kernel_ms={t['ms']!r} plain_ms={t['plain_ms']!r} "
@@ -1311,16 +1466,21 @@ def time_flash(device, dtype="bfloat16"):
                 ops=ops, bytes=n_bytes)
 
 
-def time_ssd(device):
-    """``ssd_scan`` at mamba2-2.7b's layer shape in bf16 (the model's
-    type): the kernel by CUDA events and its plain version.  No single
-    PyTorch call computes the SSD scan, so there is no library time."""
+def time_ssd(device, dtype="bfloat16"):
+    """``ssd_scan`` at mamba2-2.7b's layer shape in ``dtype`` (bf16 is the
+    model's type): the call by CUDA events (its four kernels), its plain
+    version, and each kernel's device µs per call from the profiler.  No
+    single PyTorch call computes the SSD scan, so there is no library
+    time.  The bound takes the type's peak rate (989 TFLOP/s bf16 tensor
+    cores, 67 TFLOP/s float32)."""
+    import re
+
     import torch
     from repro_torch.kernels import ssd_scan as SS
 
     case = SSD_PATH
     B, S, nh, hp, N, Q = case
-    args = ssd_inputs(case, torch.bfloat16, device, seed=99)
+    args = ssd_inputs(case, getattr(torch, dtype), device, seed=99)
     # the products the function needs, two operations a multiply-add: C.B^T
     # once per (batch, chunk), since it is the same for every head, and
     # only its causal half, j <= i; per (batch, head, chunk) the causal
@@ -1328,11 +1488,27 @@ def time_ssd(device):
     # elementwise decay weights (1.3 % as many operations) are left out.
     tri = Q * (Q + 1) // 2
     ops = 2 * B * (S // Q) * (tri * N + nh * (tri * hp + 2 * Q * N * hp))
-    n_bytes = (2 * (B * S * nh * hp + 2 * B * S * N) + 4 * (B * S * nh + nh)
+    size = args[0].element_size()
+    n_bytes = (size * (B * S * nh * hp + 2 * B * S * N) + 4 * (B * S * nh + nh)
                + 4 * (B * S * nh * hp + B * nh * hp * N))
-    t_ops, t_bytes = ops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
-    return dict(shape=case, ms=cuda_ms(lambda: SS.ssd_scan(*args, chunk=Q), 20),
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    t_ops, t_bytes = ops / rate, n_bytes / HBM_BYTES_PER_S
+
+    def kern():
+        return SS.ssd_scan(*args, chunk=Q)
+
+    ms = [cuda_ms(kern, 20), cuda_ms(kern, 20)]
+    reps = 10
+    _, avgs = profiled(lambda: [kern() for _ in range(reps)])
+    parts = {}
+    for k, (count, us) in device_kernels(avgs).items():
+        m = re.search(r"(ssd_\w+?_kernel)", k)
+        if m:
+            check(count == reps, f"ssd_scan {dtype}: {m.group(1)} {count} launches for {reps} calls")
+            parts[m.group(1)] = us / count
+    return dict(shape=case, dtype=dtype, ms=min(ms), ms_turns=ms,
                 plain_ms=cuda_ms(lambda: SS.ssd_scan_plain(*args, chunk=Q), 5),
+                device_us=sum(parts.values()) if parts else None, device_us_per_kernel=parts,
                 library_ms=None, bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 ops=ops, bytes=n_bytes)
@@ -1549,14 +1725,15 @@ def phase_ssd_layer(device, B=SSD_B, S=SSD_S):
     """Cell ``ssd_layer_mamba2_2_7b_s4096``: ``ssd_forward`` of one seeded
     full-width layer, ``use_pallas=True`` (the kernel) against
     ``use_pallas=False`` (the chunked form), float32 and bf16.  The launch
-    count is set to 0 before the phase and read after it."""
+    count is set to 0 before the phase and read after it; returns the
+    launches by type."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models import ssd as ssd_mod
 
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
-    out, launches = {}, 0
+    out, launches = {}, {}
     SS.reset_stats()
     for dtype in ("float32", "bfloat16"):
         cfg = get_config(SSD_ARCH).replace(dtype=dtype)
@@ -1569,7 +1746,7 @@ def phase_ssd_layer(device, B=SSD_B, S=SSD_S):
             got = ssd_mod.ssd_forward(p, x, cfg, use_pallas=True)
             sync(device)
             check(SS.STATS["ssd_scan"] == n0 + 1, f"ssd layer {dtype}: no ssd_scan launch")
-            launches += 1
+            launches[dtype] = 1  # bf16 and float32 run the two instantiations
             want = ssd_mod.ssd_forward(p, x, cfg, use_pallas=False)
             sync(device)
             errs = [rel_err(a, b) for a, b in zip(got, want)]
@@ -1632,8 +1809,12 @@ def main() -> int:
         wg = {k: n for k, n in mma.items() if "flash_kernel_wgmma" in k}
         check(wg and all(n > 0 for n in wg.values()),
               f"flash_kernel_wgmma has no HGMMA/HMMA in its SASS: {wg}")
+        # and the bf16 ssd kernels (C.B^T, chunk states, outputs) theirs
+        ssd = {k: n for k, n in mma.items() if "ssd_" in k and "bfloat16" in k}
+        check(len(ssd) == 9 and all(n > 0 for n in ssd.values()),
+              f"the bf16 ssd kernels lack HMMA/HGMMA in their SASS: {ssd}")
         for k, n in sorted(mma.items()):
-            if n or "flash" in k:
+            if n or "flash" in k or "ssd_" in k:
                 print(f"  sass: {k[:110]} HGMMA/HMMA={n}")
 
     lap("1")
@@ -1669,7 +1850,8 @@ def main() -> int:
     kernels = phase_timings(device, path, diff)
     model_times = {"flash_attention": time_flash(device, "bfloat16"),
                    "flash_attention_float32": time_flash(device, "float32"),
-                   "ssd_scan": time_ssd(device)}
+                   "ssd_scan": time_ssd(device, "bfloat16"),
+                   "ssd_scan_float32": time_ssd(device, "float32")}
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SS
 
@@ -1683,9 +1865,6 @@ def main() -> int:
         lambda: FA.flash_attention(*fl, causal=causal, window=window, softcap=softcap),
         "flash_kernel<")
     del fl
-    sa = ssd_inputs(SSD_PATH, torch.bfloat16, device, seed=99)
-    model_times["ssd_scan"]["device_us"] = profile_model_kernel(
-        lambda: SS.ssd_scan(*sa, chunk=SSD_PATH[-1]), "ssd_kernel")
     for name, t in model_times.items():
         print(f"  {name} at {t['shape']} {t.get('dtype', 'bfloat16')}: " + " ".join(
             f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
@@ -1698,7 +1877,8 @@ def main() -> int:
     lap("8")
     print("== phase 9: SSD layer, ssd_layer_mamba2_2_7b_s4096")
     ssd_launches, _ = phase_ssd_layer(device)
-    check(ssd_launches > 0, "ssd_scan was never launched on the SSD layer")
+    for dtype, n in ssd_launches.items():
+        check(n > 0, f"ssd_scan ({dtype}) was never launched on the SSD layer")
     lap("9")
     print(f"  serving and SSD launches: flash_attention={flash_launches} "
           f"ssd_scan={ssd_launches}")
@@ -1707,7 +1887,8 @@ def main() -> int:
              flash_launches["bfloat16"]),
             ("flash_attention_float32", "flash_attention.cu", "flash_attention.py:127",
              flash_launches["float32"]),
-            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:102", ssd_launches)):
+            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:102", ssd_launches["bfloat16"]),
+            ("ssd_scan_float32", "ssd_scan.cu", "ssd_scan.py:102", ssd_launches["float32"])):
         t = model_times[name]
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",

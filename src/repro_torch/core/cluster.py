@@ -905,19 +905,20 @@ class _NodeTruth:
         return sum(1 for _ in self)
 
 
-def _reduce_staged(staged: Sequence[Tuple[object, dict]], *, nodes: bool) -> List[int]:
+def _reduce_staged(staged: Sequence[Tuple[object, dict]], *, nodes: bool
+                   ) -> Tuple[List[int], List[int]]:
     """One kernel launch over staged ``(policy, request)`` pairs, on the
-    first policy's device; returns one argmin per request.  ``nodes``
-    takes ``score_reduce_batch`` (a node's whole window each), else
+    first policy's device; returns one argmin per request and one guarded
+    argmin (-1 for a request without a guard).  ``nodes`` takes
+    ``score_reduce_batch`` (a node's whole window each), else
     ``score_reduce_multi`` (backfill and resize windows).  The
     requests pack into one upload rounded as the solo path rounds them
     (float32 planes; float64 bias and scalars to float32), so the result
     is the solo one whichever device runs it."""
     reqs = [req for _, req in staged]
     packed = pack_windows(reqs, staged[0][0].device)
-    if nodes:
-        return score_reduce_batch(**packed)[1]
-    return score_reduce_multi(**packed)[1]
+    out = (score_reduce_batch if nodes else score_reduce_multi)(**packed)
+    return out[1], (out[2] if len(out) > 2 else [-1] * len(reqs))
 
 
 class ClusterRun:
@@ -1225,15 +1226,9 @@ class ClusterRun:
             for pol, _ in staged:
                 pol.stage_drop()  # a lone decision gains nothing batched
             return
-        bests = _reduce_staged(staged, nodes=True)
-        second: List[Tuple[object, dict]] = []
-        for (pol, _), best in zip(staged, bests):
-            req2 = pol.stage_round1(int(best))
-            if req2 is not None:
-                second.append((pol, req2))
-        if second:  # idle-node deadlock guards, themselves batched
-            for (pol, _), best in zip(second, _reduce_staged(second, nodes=True)):
-                pol.stage_round2(int(best))
+        bests, guarded = _reduce_staged(staged, nodes=True)
+        for (pol, _), best, best_g in zip(staged, bests, guarded):
+            pol.stage_round1(int(best), int(best_g))
 
     def _stage_complete_batch(self, pairs, t: float) -> None:
         """COMPLETE-burst decision staging: when a
@@ -1298,15 +1293,9 @@ class ClusterRun:
         k_launch = len(pairs_all)
         for pol, rl in resize_staged:
             pairs_all.extend((pol, req) for req in rl)
-        bests = _reduce_staged(pairs_all, nodes=False)
-        second: List[Tuple[object, dict]] = []
-        for (pol, _), best in zip(launch_staged, bests[:k_launch]):
-            req2 = pol.stage_round1(int(best))
-            if req2 is not None:
-                second.append((pol, req2))
-        if second:  # idle-node deadlock guards, themselves batched
-            for (pol, _), best2 in zip(second, _reduce_staged(second, nodes=False)):
-                pol.stage_round2(int(best2))
+        bests, guarded = _reduce_staged(pairs_all, nodes=False)
+        for (pol, _), best, best_g in zip(launch_staged, bests, guarded):
+            pol.stage_round1(int(best), int(best_g))
         i = k_launch
         for pol, rl in resize_staged:
             pol.stage_resize_results(bests[i:i + len(rl)])

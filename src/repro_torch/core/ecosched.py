@@ -52,10 +52,10 @@ Beyond-paper options (all default-off; §Perf ablations):
     forecasted queue pressure.  Never attached on the default path.
 
 A fleet coordinator (``repro_torch.core.cluster.ClusterRun``) may stage
-a node's decision: ``stage_score``/``stage_round1``/``stage_round2``
-and ``stage_resize``/``stage_resize_results`` park the argmins of one
-cross-node kernel launch, consumed only when the decision state still
-matches.  Twin of ``repro.core.ecosched``.
+a node's decision: ``stage_score``/``stage_round1`` and
+``stage_resize``/``stage_resize_results`` park the argmins of one
+cross-node kernel launch (an idle node's guard included), consumed only
+when the decision state still matches.  Twin of ``repro.core.ecosched``.
 """
 from __future__ import annotations
 
@@ -385,7 +385,9 @@ class EcoSched:
         tokens — so the imminent solo invocation behaves bit-identically
         whether or not staging happened) and return the kernel request
         dict for ``score_reduce_batch`` (the numpy request shape of
-        ``pack_windows``).  Returns None when this event would not launch
+        ``pack_windows``); on an idle node it carries the deadlock guard
+        (``guard``: the non-empty rows), whose winner comes back from the
+        same launch.  Returns None when this event would not launch
         a solo kernel anyway (non-torch engine, empty or un-placeable
         window, launch-memo hit, overflow fallback)."""
         self._staged = None
@@ -431,32 +433,27 @@ class EcoSched:
             dev=dev, g=g, n=n, lam=self.lam, g_free=view.free_units,
             M=view.alive_units, f=fcol, lam_f=self.lam_f, bias=bias,
         )
+        if not view.running:  # the idle-node guard rides in the launch
+            req["guard"] = batch.n_jobs > 0
         self._staged = {
             "sig": self._stage_sig(view, specs),
             "batch": batch,
-            "req": req,
-            "guard": not view.running,
             "best": None,
         }
         return req
 
-    def stage_round1(self, best: int):
-        """Phase 2: record the batched round-1 argmin.  Returns the
-        round-2 masked request when the idle-node deadlock guard needs one
-        (the coordinator batches those too), else None."""
+    def stage_round1(self, best: int, best_guard: int) -> None:
+        """Phase 2: record the batched argmin and, for an idle node, its
+        guard's winner from the same launch: when the empty action (row
+        0) wins on an idle node, the best non-empty action is taken
+        instead, as ``_best_torch`` does."""
         st = self._staged
         if st is None:
-            return None
+            return
         st["best"] = int(best)
-        if best == 0 and st["guard"]:
-            return dict(st["req"], mask=st["batch"].n_jobs > 0)
-        return None
-
-    def stage_round2(self, best: int) -> None:
-        st = self._staged
-        if st is not None and best >= 0:
-            st["best"] = int(best)
-            st["nonempty"] = True  # guard re-score chose this row
+        if best == 0 and best_guard >= 0:  # only an idle node has a guard
+            st["best"] = int(best_guard)
+            st["nonempty"] = True  # the guard chose this row
 
     def stage_drop(self) -> None:
         self._staged = None

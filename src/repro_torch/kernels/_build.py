@@ -43,14 +43,17 @@ _SIGNATURES = {
     # dev, g, f, n, bias, mask, guard, B, S, lam, g_free, M, lam_f,
     # out, ticket, host_best, stream
     "score_reduce_launch": [_P] * 7 + [_I, _I] + [_F] * 4 + [_P] * 4,
-    # dev, g, f, n, bias, mask, offsets, params, W, S, scores, best, stream
-    # (score_reduce_multi and score_reduce_batch)
-    "score_reduce_multi_launch": [_P] * 8 + [_I, _I] + [_P] * 3,
+    # dev, g, f, n, bias, mask, guard, offsets, params, W, R, S, out,
+    # host_best, stream (score_reduce_multi and score_reduce_batch)
+    "score_reduce_multi_launch": [_P] * 9 + [_I] * 3 + [_P] * 3,
     # q, k, v, o, B, Sq, Skv, H, KVH, hd, dtype, causal, window,
     # scale, softcap, stream
     "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
-    # x, dt, A, Bm, Cm, y, h, B, S, nh, hp, N, Q, dtype, stream
-    "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_P],
+    # x, dt, A, Bm, Cm, y, h, scratch, B, S, nh, hp, N, Q, dtype, stream
+    "ssd_scan_launch": [_P] * 8 + [_I] * 7 + [_P],
+    # B, S, nh, hp, N, Q, dtype, scratch_floats (out), smem_bytes (out)
+    "ssd_scan_plan": [_I] * 7 + [ctypes.POINTER(ctypes.c_longlong),
+                                 ctypes.POINTER(ctypes.c_int)],
 }
 
 

@@ -34,7 +34,9 @@
 // one [lam, g_free, M, lam_f] params row per segment): each node of the
 // batch form, or window of the multi form, gets one block that walks its
 // contiguous row range with a strided loop and combines with the same
-// compare.  That replaces the reference's padded (D, B, S) grid and its
+// compare, the two winners (mask; mask and an optional guard) in one tree
+// as score_reduce does, so the fleet's idle-node guard rides in the same
+// launch.  That replaces the reference's padded (D, B, S) grid and its
 // scatter-min, needs no second pass and no scratch, and stays correct for
 // a node of any size (a 50,000-row node is one block looping 196 times;
 // the fleet path's nodes fit one block's first step).  All use the same
@@ -217,8 +219,9 @@ __global__ void __launch_bounds__(kThreads) score_windows_kernel(
     const float* __restrict__ dev, const float* __restrict__ g,
     const float* __restrict__ f, const float* __restrict__ n,
     const float* __restrict__ bias, const float* __restrict__ mask,
-    const int* __restrict__ offsets, const float* __restrict__ params, int S,
-    float* __restrict__ scores, int* __restrict__ best) {
+    const float* __restrict__ guard, const int* __restrict__ offsets,
+    const float* __restrict__ params, int W, int S, float* __restrict__ scores,
+    int* __restrict__ best) {
   const int w = blockIdx.x;
   const int lo = offsets[w];
   const int hi = offsets[w + 1];
@@ -226,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) score_windows_kernel(
   const float g_free = params[4 * w + 1];
   const float M = params[4 * w + 2];
   const float lam_f = params[4 * w + 3];
-  Best mine[1] = {none(hi - lo)};
+  Best mine[2] = {none(hi - lo), none(hi - lo)};  // [0] mask, [1] mask and guard
   for (int row = lo + threadIdx.x; row < hi; row += kThreads) {
     float sc, tot;
     row_score(dev, g, f, n, bias, mask, S, row, lam, g_free, M, lam_f, &sc,
@@ -237,9 +240,16 @@ __global__ void __launch_bounds__(kThreads) score_windows_kernel(
     o.tot = tot;
     o.row = row - lo;
     if (better(o, mine[0])) mine[0] = o;
+    if (guard != nullptr) {
+      if (!(guard[row] > 0.0f)) o.score = CUDART_INF_F;
+      if (better(o, mine[1])) mine[1] = o;
+    }
   }
   block_best<kThreads>(mine);
-  if (threadIdx.x == 0) best[w] = isinf(mine[0].score) ? -1 : mine[0].row;
+  if (threadIdx.x == 0) {
+    best[w] = isinf(mine[0].score) ? -1 : mine[0].row;
+    best[W + w] = isinf(mine[1].score) ? -1 : mine[1].row;
+  }
 }
 
 }  // namespace
@@ -280,21 +290,36 @@ int score_reduce_launch(const void* dev, const void* g, const void* f,
 
 // Segments packed on the row axis (the windows of score_reduce_multi, the
 // nodes of score_reduce_batch): segment w owns rows [offsets[w],
-// offsets[w+1]) and its [lam, g_free, M, lam_f] row params[4w:4w+4].
-// scores (R,), best (W,) segment-local rows.
+// offsets[w+1]) of the R rows and its [lam, g_free, M, lam_f] row
+// params[4w:4w+4].  out holds R float scores, then W int winners over the
+// rows mask admits, then W over those guard admits as well (segment-local
+// rows; -1 where none, every second winner -1 when guard is null; a
+// segment whose guard rows are all 0 carries no guard).  With a host
+// (pinned) pointer host_best the W winners, or the 2W with a guard, are
+// also copied there and the stream synchronised before the return; null
+// leaves the call asynchronous.
 int score_reduce_multi_launch(const void* dev, const void* g, const void* f,
                               const void* n, const void* bias,
-                              const void* mask, const void* offsets,
-                              const void* params, int W, int S, void* scores,
-                              void* best, void* stream) {
+                              const void* mask, const void* guard,
+                              const void* offsets, const void* params, int W,
+                              int R, int S, void* out, void* host_best,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* scores = static_cast<float*>(out);
+  int* best = reinterpret_cast<int*>(scores + R);
   score_windows_kernel<<<W, kThreads, 0, st>>>(
       static_cast<const float*>(dev), static_cast<const float*>(g),
       static_cast<const float*>(f), static_cast<const float*>(n),
       static_cast<const float*>(bias), static_cast<const float*>(mask),
-      static_cast<const int*>(offsets), static_cast<const float*>(params), S,
-      static_cast<float*>(scores), static_cast<int*>(best));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(guard), static_cast<const int*>(offsets),
+      static_cast<const float*>(params), W, S, scores, best);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || host_best == nullptr) return static_cast<int>(err);
+  const size_t words = static_cast<size_t>(guard != nullptr ? 2 * W : W);
+  err = cudaMemcpyAsync(host_best, best, words * sizeof(int),
+                        cudaMemcpyDeviceToHost, st);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -23,7 +23,10 @@ and one read of two ints.
 fleet path's same-instant bursts) and ``score_reduce_multi`` many small
 windows; both take the rows of all their nodes or windows packed on the
 row axis (``pack_windows``), and each node's or window's result is
-bitwise that of a solo ``score_reduce`` on its rows.
+bitwise that of a solo ``score_reduce`` on its rows.  With a ``guard``
+plane they also return, from the same launch, each segment's argmin over
+the rows the guard admits as well, so the fleet's idle nodes get both
+winners of their guard from the burst's one launch.
 
 Each function has two versions here.  On a CUDA tensor the wrapper
 launches the hand-written kernel of ``csrc/score_reduce.cu`` (built at
@@ -40,16 +43,16 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 _ROWS_PER_BLOCK = 8192  # score_reduce's rows per block (csrc kRowsPerBlock)
 # per device: the zeroed int ticket of the multi-block combine, and the
-# pinned host pair the winners are copied into
+# pinned host ints the winners are copied into (grown to the widest burst)
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
-_HOST_BEST: Dict[torch.device, torch.Tensor] = {}
+_HOST_WINNERS: Dict[torch.device, torch.Tensor] = {}
 
 
 @dataclass
@@ -61,9 +64,9 @@ class KernelStats:
     max_rows: int = 0
     windows: int = 0  # nodes or windows reduced (1 per solo launch)
     max_windows: int = 0
-    guarded: int = 0  # score_reduce calls that carried a guard
+    guarded: int = 0  # segments (a solo call is one) that carried a guard
 
-    def add(self, rows: int, windows: int = 1, guarded: bool = False) -> None:
+    def add(self, rows: int, windows: int = 1, guarded: int = 0) -> None:
         self.launches += 1
         self.guarded += int(guarded)
         self.rows += rows
@@ -177,15 +180,20 @@ def score_reduce_plain(dev, g, n, *, lam, g_free, M, f=None, lam_f=0.0,
                                     p[2], p[3])
     if guard is None:
         return scores, _pick_plain(scores, tot)
-    guarded = torch.where(guard > 0, scores, torch.full_like(scores, float("inf")))
-    return scores, _pick_plain(scores, tot), _pick_plain(guarded, tot)
+    return scores, _pick_plain(scores, tot), _pick_guarded_plain(scores, tot, guard)
+
+
+def _pick_guarded_plain(scores, tot, guard) -> int:
+    """The tie-broken argmin over the rows ``guard`` also admits."""
+    return _pick_plain(
+        torch.where(guard > 0, scores, torch.full_like(scores, float("inf"))), tot)
 
 
 def score_reduce_multi_plain(dev, g, n, offsets, params, *, f=None,
-                             bias=None, mask=None
-                             ) -> Tuple[torch.Tensor, List[int]]:
-    """Plain PyTorch version of :func:`score_reduce_multi`."""
-    _check_block(dev, g, n, f, bias, mask)
+                             bias=None, mask=None, guard=None, guarded=None):
+    """Plain PyTorch version of :func:`score_reduce_multi` (same arguments
+    and result)."""
+    _check_block(dev, g, n, f, bias, mask, guard)
     off, W = _check_windows(offsets, params, dev)
     lo, hi = off[:-1], off[1:]
     wid = torch.repeat_interleave(
@@ -194,21 +202,22 @@ def score_reduce_multi_plain(dev, g, n, offsets, params, *, f=None,
     rp = params.index_select(0, wid)  # per-row [λ, G_free, M, λ_f]
     scores, tot = _row_scores_plain(dev, g, f, n, bias, mask, rp[:, 0],
                                     rp[:, 1], rp[:, 2], rp[:, 3])
-    bests = []
+    bests, bests_g = [], []
     for a, b in zip(lo.tolist(), hi.tolist()):
         bests.append(_pick_plain(scores[a:b], tot[a:b]))
-    return scores, bests
+        if guard is not None:
+            bests_g.append(_pick_guarded_plain(scores[a:b], tot[a:b], guard[a:b]))
+    return (scores, bests) if guard is None else (scores, bests, bests_g)
 
 
 def score_reduce_batch_plain(dev, g, n, offsets, params, *, f=None,
-                             bias=None, mask=None
-                             ) -> Tuple[torch.Tensor, List[int]]:
+                             bias=None, mask=None, guard=None, guarded=None):
     """Plain PyTorch version of :func:`score_reduce_batch`: one solo
     reduction per node, each with its own params row."""
-    _check_block(dev, g, n, f, bias, mask)
+    _check_block(dev, g, n, f, bias, mask, guard)
     off, D = _check_windows(offsets, params, dev)
     bounds = off.tolist()
-    parts, bests = [], []
+    parts, bests, bests_g = [], [], []
     for d in range(D):
         rows = slice(bounds[d], bounds[d + 1])
         p = params[d]
@@ -219,9 +228,11 @@ def score_reduce_batch_plain(dev, g, n, offsets, params, *, f=None,
         )
         parts.append(s)
         bests.append(_pick_plain(s, tot))
-    if not parts:
-        return torch.empty(0, dtype=torch.float32, device=dev.device), []
-    return torch.cat(parts), bests
+        if guard is not None:
+            bests_g.append(_pick_guarded_plain(s, tot, guard[rows]))
+    scores = (torch.cat(parts) if parts else
+              torch.empty(0, dtype=torch.float32, device=dev.device))
+    return (scores, bests) if guard is None else (scores, bests, bests_g)
 
 
 # ---------------------------------------------------------------------------
@@ -245,10 +256,10 @@ def score_reduce(dev, g, n, *, lam, g_free, M, f=None, lam_f=0.0,
 
     On the card a call is one launch, one device allocation (the scores
     and both winners in one buffer; above 8192 rows also the per-block
-    scratch) and one copy of the two winners into a pinned host pair of
-    the device, with a stream sync, inside the same C call.  The ticket
-    and the pair are per device, so calls on one device are made from
-    one thread.
+    scratch) and one copy of the two winners into the device's pinned
+    host ints, with a stream sync, inside the same C call.  The ticket
+    and the host ints are per device, so calls on one device are made
+    from one thread.
     """
     B, S = _check_block(dev, g, n, f, bias, mask, guard)
     if _device_kind(dev) == "cpu":
@@ -264,7 +275,7 @@ def score_reduce(dev, g, n, *, lam, g_free, M, f=None, lam_f=0.0,
     out = torch.empty(B + 2 + (6 * nb if nb > 1 else 0), dtype=torch.float32,
                       device=dev.device)
     ticket = _ticket(dev.device) if nb > 1 else None
-    host = _host_pair(dev.device)
+    host = _host_winners(dev.device, 2)
     stream = torch.cuda.current_stream(dev.device).cuda_stream
     # the launch, the copy of the two winners into pinned host memory and
     # the stream sync, all in the one C call
@@ -275,7 +286,7 @@ def score_reduce(dev, g, n, *, lam, g_free, M, f=None, lam_f=0.0,
     )
     _raise_on(err, "score_reduce launch")
     STATS["score_reduce"].add(B, guarded=guard is not None)
-    best, best_guard = host.tolist()
+    best, best_guard = host[:2].tolist()
     scores = out[:B]
     return (scores, best) if guard is None else (scores, best, best_guard)
 
@@ -285,13 +296,6 @@ def _ticket(device: torch.device) -> torch.Tensor:
     if device not in _TICKETS:
         _TICKETS[device] = torch.zeros(1, dtype=torch.int32, device=device)
     return _TICKETS[device]
-
-
-def _host_pair(device: torch.device) -> torch.Tensor:
-    """The device's pinned host pair that the two winners are copied to."""
-    if device not in _HOST_BEST:
-        _HOST_BEST[device] = torch.empty(2, dtype=torch.int32, pin_memory=True)
-    return _HOST_BEST[device]
 
 
 def _check_windows(offsets, params, dev) -> Tuple[torch.Tensor, int]:
@@ -310,31 +314,50 @@ def _check_windows(offsets, params, dev) -> Tuple[torch.Tensor, int]:
     return offsets, W
 
 
-def _launch_segments(name, dev, g, n, offsets, params, f, bias, mask):
+def _host_winners(device: torch.device, n: int) -> torch.Tensor:
+    """The device's pinned host ints the winners are copied into, at
+    least ``n`` long (grown to the widest burst)."""
+    buf = _HOST_WINNERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(max(n, 64, 0 if buf is None else 2 * buf.numel()),
+                          dtype=torch.int32, pin_memory=True)
+        _HOST_WINNERS[device] = buf
+    return buf
+
+
+def _launch_segments(name, dev, g, n, offsets, params, f, bias, mask, guard,
+                     guarded):
     """The single-pass kernel shared by :func:`score_reduce_multi` and
     :func:`score_reduce_batch`: one block per packed segment (window or
-    node) of any size.  Counts the launch under ``name``."""
+    node) of any size, one device allocation for the scores and both
+    winners of every segment, and the winners copied into pinned host
+    memory inside the same C call.  Counts the launch under ``name``."""
     R, S = dev.shape
     W = params.shape[0]
-    scores = torch.empty(R, dtype=torch.float32, device=dev.device)
     if W == 0:
-        return scores, []
+        scores = torch.empty(R, dtype=torch.float32, device=dev.device)
+        return (scores, []) if guard is None else (scores, [], [])
     from repro_torch.kernels._build import library
 
-    best = torch.empty(W, dtype=torch.int32, device=dev.device)
+    out = torch.empty(R + 2 * W, dtype=torch.float32, device=dev.device)
+    host = _host_winners(dev.device, 2 * W)
     stream = torch.cuda.current_stream(dev.device).cuda_stream
     err = library().score_reduce_multi_launch(
         _ptr(dev), _ptr(g), _ptr(f), _ptr(n), _ptr(bias), _ptr(mask),
-        _ptr(offsets), _ptr(params), W, S, _ptr(scores), _ptr(best),
-        ctypes.c_void_p(stream),
+        _ptr(guard), _ptr(offsets), _ptr(params), W, R, S, out.data_ptr(),
+        host.data_ptr(), ctypes.c_void_p(stream),
     )
     _raise_on(err, f"{name} launch")
-    STATS[name].add(R, W)
-    return scores, best.tolist()
+    STATS[name].add(R, W, guarded=0 if guard is None else
+                    W if guarded is None else guarded)
+    if guard is None:
+        return out[:R], host[:W].tolist()
+    both = host[:2 * W].tolist()
+    return out[:R], both[:W], both[W:]
 
 
 def score_reduce_multi(dev, g, n, offsets, params, *, f=None, bias=None,
-                       mask=None) -> Tuple[torch.Tensor, List[int]]:
+                       mask=None, guard=None, guarded=None):
     """Reduce many candidate windows packed on the row axis in one launch.
 
     Window ``w`` owns rows ``offsets[w]:offsets[w+1]`` of the (R, S)
@@ -343,20 +366,24 @@ def score_reduce_multi(dev, g, n, offsets, params, *, f=None, bias=None,
     (W, 4)).  Every window's scores and winner are bitwise those of a solo
     :func:`score_reduce` on its rows.  Returns (scores (R,), one
     window-local winning row per window, -1 for an empty or all-infeasible
-    window).  :func:`pack_windows` builds the arguments from request
-    dicts.
+    window).  With ``guard`` (R,) it returns (scores, winners, guarded
+    winners), the last each window's winner over the rows ``mask`` and
+    ``guard`` both admit (-1 where none: a window whose guard rows are all
+    0 carries no guard), from the same launch; ``guarded`` is the number
+    of windows that carried one, for ``STATS`` (default: all of them).
+    :func:`pack_windows` builds the arguments from request dicts.
     """
-    _check_block(dev, g, n, f, bias, mask)
+    _check_block(dev, g, n, f, bias, mask, guard)
     _check_windows(offsets, params, dev)
     if _device_kind(dev) == "cpu":
         return score_reduce_multi_plain(dev, g, n, offsets, params, f=f,
-                                        bias=bias, mask=mask)
+                                        bias=bias, mask=mask, guard=guard)
     return _launch_segments("score_reduce_multi", dev, g, n, offsets, params,
-                            f, bias, mask)
+                            f, bias, mask, guard, guarded)
 
 
 def score_reduce_batch(dev, g, n, offsets, params, *, f=None, bias=None,
-                       mask=None) -> Tuple[torch.Tensor, List[int]]:
+                       mask=None, guard=None, guarded=None):
     """Reduce many nodes' candidate blocks in one launch.
 
     The arguments are :func:`score_reduce_multi`'s (``pack_windows``
@@ -365,15 +392,16 @@ def score_reduce_batch(dev, g, n, offsets, params, *, f=None, bias=None,
     each node one block that loops over its rows, so no node size has to
     be known ahead.  Returns (scores (R,), one node-local winning row per
     node, -1 for an empty or all-infeasible node), each node bitwise a
-    solo :func:`score_reduce`.
+    solo :func:`score_reduce`; with ``guard`` also each node's guarded
+    winner, as :func:`score_reduce_multi` does.
     """
-    _check_block(dev, g, n, f, bias, mask)
+    _check_block(dev, g, n, f, bias, mask, guard)
     _check_windows(offsets, params, dev)
     if _device_kind(dev) == "cpu":
         return score_reduce_batch_plain(dev, g, n, offsets, params, f=f,
-                                        bias=bias, mask=mask)
+                                        bias=bias, mask=mask, guard=guard)
     return _launch_segments("score_reduce_batch", dev, g, n, offsets, params,
-                            f, bias, mask)
+                            f, bias, mask, guard, guarded)
 
 
 def pack_windows(reqs: Sequence[Dict[str, Any]], device) -> Dict[str, Any]:
@@ -381,60 +409,58 @@ def pack_windows(reqs: Sequence[Dict[str, Any]], device) -> Dict[str, Any]:
     :func:`score_reduce_batch`'s) arguments on
     ``device`` — the reference's request shape: numpy ``dev``/``g`` (B, S),
     ``n`` (B,), scalars ``lam``/``g_free``/``M``, optional ``f``/``lam_f``/
-    ``bias``/``mask``.  Windows concatenate on the row axis, zero-padded
-    to the widest S (appended zeros add exactly +0.0 to every slot sum);
-    the float planes share one host buffer, so the upload is one copy
-    for them and one for the offsets."""
+    ``bias``/``mask``, and optional ``guard`` (B,) (rows of requests
+    without one are 0, so they give no guarded winner; ``guarded`` counts
+    the requests with one).  Windows concatenate on the row axis,
+    zero-padded to the widest S (appended zeros add exactly +0.0 to every
+    slot sum); the float planes, the columns, the params and the int32
+    offsets share one host buffer, so the upload is one copy."""
     sizes = [r["dev"].shape for r in reqs]
     R = sum(b for b, _ in sizes)
     S = max((s for _, s in sizes), default=1) or 1
     W = len(reqs)
     has_f = any(r.get("f") is not None for r in reqs)
-    has_bias = any(r.get("bias") is not None for r in reqs)
-    has_mask = any(r.get("mask") is not None for r in reqs)
+    optional = [k for k in ("bias", "mask", "guard")
+                if any(r.get(k) is not None for r in reqs)]
     n_planes = 3 if has_f else 2
-    n_cols = 1 + has_bias + has_mask
-    buf = np.zeros(n_planes * R * S + n_cols * R + 4 * W, dtype=np.float32)
-    planes = [buf[k * R * S:(k + 1) * R * S].reshape(R, S)
-              for k in range(n_planes)]
-    at = n_planes * R * S
-    cols = [buf[at + k * R: at + (k + 1) * R] for k in range(n_cols)]
-    params = buf[at + n_cols * R:].reshape(W, 4)
-    offsets = np.zeros(W + 1, dtype=np.int32)
+    n_cols = 1 + len(optional)
+    at = n_planes * R * S  # the columns, then params, then offsets
+    buf = np.zeros(at + n_cols * R + 4 * W + W + 1, dtype=np.float32)
+    planes = buf[:at].reshape(n_planes, R, S)
+    cols = buf[at:at + n_cols * R].reshape(n_cols, R)
+    p_at = at + n_cols * R
+    params = buf[p_at:p_at + 4 * W].reshape(W, 4)
+    offsets = buf[p_at + 4 * W:].view(np.int32)
     off = 0
     for k, r in enumerate(reqs):
         B, s = sizes[k]
         rows = slice(off, off + B)
-        planes[0][rows, :s] = r["dev"]
-        planes[1][rows, :s] = r["g"]
+        planes[0, rows, :s] = r["dev"]
+        planes[1, rows, :s] = r["g"]
         if has_f and r.get("f") is not None:
-            planes[2][rows, :s] = r["f"]
-        cols[0][rows] = np.asarray(r["n"], dtype=np.float32).reshape(B)
-        c = 1
-        if has_bias:
-            if r.get("bias") is not None:
-                cols[c][rows] = np.asarray(r["bias"], dtype=np.float32).reshape(B)
-            c += 1
-        if has_mask:
-            m = r.get("mask")
-            cols[c][rows] = (
-                1.0 if m is None else np.asarray(m, dtype=np.float32).reshape(B)
-            )
+            planes[2, rows, :s] = r["f"]
+        cols[0, rows] = np.asarray(r["n"], dtype=np.float32).reshape(B)
+        for c, key in enumerate(optional, start=1):
+            v = r.get(key)
+            if v is not None:
+                cols[c, rows] = np.asarray(v, dtype=np.float32).reshape(B)
+            elif key == "mask":
+                cols[c, rows] = 1.0  # no mask: every row feasible
         params[k] = [r["lam"], r["g_free"], r["M"], r.get("lam_f", 0.0)]
         off += B
         offsets[k + 1] = off
     dbuf = torch.from_numpy(buf).to(device)
-    at = n_planes * R * S
     out = dict(
         dev=dbuf[:R * S].view(R, S),
         g=dbuf[R * S:2 * R * S].view(R, S),
         f=dbuf[2 * R * S:3 * R * S].view(R, S) if has_f else None,
         n=dbuf[at:at + R],
-        offsets=torch.from_numpy(offsets).to(device),
-        params=dbuf[at + n_cols * R:].view(W, 4),
+        params=dbuf[p_at:p_at + 4 * W].view(W, 4),
+        offsets=dbuf[p_at + 4 * W:].view(torch.int32),
     )
-    c = 1
-    out["bias"] = dbuf[at + c * R: at + (c + 1) * R] if has_bias else None
-    c += has_bias
-    out["mask"] = dbuf[at + c * R: at + (c + 1) * R] if has_mask else None
+    for key in ("bias", "mask", "guard"):
+        c = optional.index(key) + 1 if key in optional else None
+        out[key] = None if c is None else dbuf[at + c * R:at + (c + 1) * R]
+    if "guard" in optional:
+        out["guarded"] = sum(r.get("guard") is not None for r in reqs)
     return out

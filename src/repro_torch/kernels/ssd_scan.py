@@ -12,10 +12,14 @@ Returns y (B, S, nh, hp) float32 **without** the D·x skip term, and the
 final state (B, nh, hp, N) float32.  There is no initial state, as in the
 reference kernel.
 
-On a CUDA tensor :func:`ssd_scan` launches the hand-written kernel of
+On a CUDA tensor :func:`ssd_scan` launches the hand-written kernels of
 ``csrc/ssd_scan.cu`` or raises; on a CPU tensor it runs
-:func:`ssd_scan_plain`, the reference kernel's chunk loop in torch.  Only
-a kernel launch counts in ``STATS``.
+:func:`ssd_scan_plain`.  Both take the chunks in parallel, as four steps:
+C·Bᵀ once per (batch, chunk); every chunk's local state from zero,
+s_c = xᵀ (B·exp(Ltot − La)·dt); a serial pass over the chunks only,
+h_c = exp(Ltot_c)·h_{c−1} + s_c; and the outputs, the causal scores
+against x plus exp(La_i)·(C_i·h_{c−1}ᵀ).  Only a call that launches the
+kernels counts in ``STATS``, once.
 """
 from __future__ import annotations
 
@@ -61,29 +65,36 @@ def _check(xh, dt, A, Bm, Cm, chunk):
 
 def ssd_scan_plain(xh, dt, A, Bm, Cm, *, chunk: int = 256
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: the reference kernel's per-chunk body, one
-    chunk at a time over all batches and heads.  Same arguments and
-    result as :func:`ssd_scan`."""
+    """Plain PyTorch version, in the kernels' decomposition: C·Bᵀ and the
+    chunk-local states for all chunks at once, then the serial pass over
+    the chunks, then each chunk's outputs.  Same arguments and result as
+    :func:`ssd_scan`."""
     B, S, nh, hp, N, Q = _check(xh, dt, A, Bm, Cm, chunk)
-    x, Bf, Cf = xh.float(), Bm.float(), Cm.float()
+    nc = S // Q
+    x = xh.float().reshape(B, nc, Q, nh, hp)
+    dtc = dt.reshape(B, nc, Q, nh)
+    Bc = Bm.float().reshape(B, nc, Q, N)
+    Cc = Cm.float().reshape(B, nc, Q, N)
+    La = torch.cumsum(dtc * A, dim=2)  # (B, nc, Q, nh)
+    Ltot = La[:, :, -1]  # (B, nc, nh)
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # once per (batch, chunk)
+    w = torch.exp(Ltot[:, :, None, :] - La) * dtc  # (B, nc, Q, nh)
+    s = torch.einsum("bcjhp,bcjn->bchpn", x * w[..., None], Bc)  # from zero
     h = torch.zeros((B, nh, hp, N), dtype=torch.float32, device=xh.device)
+    h_in = []  # the state each chunk starts from
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(Ltot[:, c])[..., None, None] * h + s[:, c]
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
     ys = []
-    for c0 in range(0, S, Q):
-        sl = slice(c0, c0 + Q)
-        xc, dtc, Bc, Cc = x[:, sl], dt[:, sl], Bf[:, sl], Cf[:, sl]
-        La = torch.cumsum(dtc * A, dim=1)  # (B, Q, nh)
-        Ltot = La[:, -1]  # (B, nh)
-        cb = torch.einsum("bqn,bkn->bqk", Cc, Bc)
-        decay = torch.exp(La[:, :, None, :] - La[:, None, :, :])  # (B,Q,Q,nh)
-        scores = torch.where(causal[None, :, :, None], cb[..., None] * decay,
+    for c in range(nc):
+        decay = torch.exp(La[:, c, :, None, :] - La[:, c, None, :, :])  # (B,Q,Q,nh)
+        scores = torch.where(causal[None, :, :, None], cb[:, c, ..., None] * decay,
                              torch.zeros((), device=xh.device))
-        scores = scores * dtc[:, None, :, :]
-        y = torch.einsum("bqkh,bkhp->bqhp", scores, xc)
-        y = y + torch.einsum("bqn,bhpn->bqhp", Cc, h) * torch.exp(La)[..., None]
-        w = torch.exp(Ltot[:, None, :] - La) * dtc  # (B, Q, nh)
-        h = torch.exp(Ltot)[..., None, None] * h + torch.einsum(
-            "bqhp,bqn->bhpn", xc * w[..., None], Bc)
+        scores = scores * dtc[:, c, None, :, :]
+        y = torch.einsum("bqkh,bkhp->bqhp", scores, x[:, c])
+        y = y + torch.einsum("bqn,bhpn->bqhp", Cc[:, c], h_in[c]) * torch.exp(
+            La[:, c])[..., None]
         ys.append(y)
     return torch.cat(ys, dim=1), h
 
@@ -95,7 +106,12 @@ def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int = 256
     ``xh`` (B, S, nh, hp), ``Bm``/``Cm`` (B, S, N) in one type (float32 or
     bfloat16); ``dt`` (B, S, nh) and ``A`` (nh,) float32.  ``S`` must be a
     multiple of ``min(chunk, S)``.  On the card ``hp`` must be one of
-    :data:`HEAD_DIMS` and the chunk at most :data:`MAX_CHUNK`.
+    :data:`HEAD_DIMS`, the chunk at most :data:`MAX_CHUNK`, and the state
+    size N small enough for one block's shared memory (it holds the
+    carried state as hi + lo bf16, a 64-row tile of C and the copies in
+    flight: at chunk 256, N up to 240 at hp 128 in bf16 and 144 in
+    float32, 448 at hp 64 in bf16 and 288 in float32); the
+    wrapper raises with the need otherwise.
     """
     B, S, nh, hp, N, Q = _check(xh, dt, A, Bm, Cm, chunk)
     if xh.device.type == "cpu":
@@ -115,11 +131,23 @@ def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int = 256
         return y.zero_(), h.zero_()
     from repro_torch.kernels._build import library
 
+    lib = library()
+    scratch_floats, smem = ctypes.c_longlong(0), ctypes.c_int(0)
+    code = lib.ssd_scan_plan(B, S, nh, hp, N, Q, _DTYPES[xh.dtype],
+                             ctypes.byref(scratch_floats), ctypes.byref(smem))
+    if code != 0:
+        raise ValueError(
+            f"ssd_scan: state size N={N} at head dim {hp} needs {smem.value} "
+            f"bytes of shared memory in one block, above the 226 KB the "
+            f"kernels take" if code == 2 else
+            f"ssd_scan: shape (B={B}, S={S}, hp={hp}, N={N}, chunk={Q}) not taken")
+    # C·Bᵀ per (batch, chunk), the chunk states and their decays
+    scratch = torch.empty(scratch_floats.value, dtype=torch.float32, device=xh.device)
     stream = torch.cuda.current_stream(xh.device).cuda_stream
-    err = library().ssd_scan_launch(
+    err = lib.ssd_scan_launch(
         xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, nh, hp, N, Q,
-        _DTYPES[xh.dtype], ctypes.c_void_p(stream),
+        Cm.data_ptr(), y.data_ptr(), h.data_ptr(), scratch.data_ptr(), B, S,
+        nh, hp, N, Q, _DTYPES[xh.dtype], ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"ssd_scan launch: CUDA error {err}")

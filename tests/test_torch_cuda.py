@@ -133,6 +133,40 @@ def test_score_reduce_batch_kernel_matches_plain_and_solo(device, sizes):
         assert torch.equal(s_d, scores[sl])
 
 
+@pytest.mark.parametrize("name", ["score_reduce_batch", "score_reduce_multi"])
+@pytest.mark.parametrize("sizes", [(5, 0, 300, 17), (1,), (6181, 0, 257, 256, 1)])
+def test_guarded_packed_kernel_matches_plain_and_two_calls(device, name, sizes):
+    """The packed kernel with the idle-node guard on every other segment:
+    one launch gives scores and both winners bitwise its plain version's
+    and the two calls the guard replaces."""
+    from repro_torch.kernels import score_reduce as K
+
+    rng = np.random.default_rng(len(sizes) + 7)
+    reqs = []
+    for k, B in enumerate(sizes):
+        dev, g, n, mask = (t.cpu().numpy() for t in _block(rng, B, 3, "cpu"))
+        r = dict(dev=dev, g=g, n=n, lam=0.1 * (k + 1), g_free=8, M=8, mask=mask,
+                 bias=rng.uniform(0, 0.2, B))
+        if k % 2 == 0:
+            r["guard"] = n > 0
+        reqs.append(r)
+    fn = getattr(K, name)
+    packed = K.pack_windows(reqs, device)
+    before = (K.STATS[name].launches, K.STATS[name].guarded)
+    scores, bests, bests_g = fn(**packed)
+    assert (K.STATS[name].launches, K.STATS[name].guarded) == (
+        before[0] + 1, before[1] + sum("guard" in r for r in reqs))
+    s_p, b_p, j_p = getattr(K, name + "_plain")(**packed)
+    assert (bests, bests_g) == (b_p, j_p) and torch.equal(scores, s_p)
+    plain = [{k: v for k, v in r.items() if k != "guard"} for r in reqs]
+    s_1, b_1 = fn(**K.pack_windows(plain, device))
+    masked = [dict(q, mask=np.asarray(r.get("guard", np.zeros(len(r["n"]), bool)), bool)
+                   & (q["mask"] > 0)) for r, q in zip(reqs, plain)]
+    _, j_2 = fn(**K.pack_windows(masked, device))
+    assert torch.equal(scores, s_1) and bests == b_1 and bests_g == j_2
+    assert all(j == -1 for r, j in zip(reqs, bests_g) if "guard" not in r)
+
+
 def test_fleet_stages_through_the_batch_kernel(device):
     from repro_torch.core import (Cluster, EcoSched, NodeSpec, ProfiledPerfModel,
                                   RoundRobinDispatcher, bursty_stream)
@@ -189,8 +223,15 @@ def test_flash_attention_kernel_matches_plain(device, shape, dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("shape", [(2, 128, 4, 32, 64, 32), (2, 512, 6, 64, 128, 256)])
-def test_ssd_scan_kernel_matches_plain(device, shape):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 128, 4, 32, 64, 32), (2, 512, 6, 64, 128, 256),
+                                   # the kernels' edges: one chunk (S = Q), chunk
+                                   # 1024, hp 128 with N 128, N 16, and a chunk
+                                   # and state size off the 16-row tiles
+                                   (1, 256, 4, 32, 64, 256), (1, 2048, 2, 64, 64, 1024),
+                                   (1, 512, 4, 128, 128, 256), (2, 256, 4, 16, 16, 64),
+                                   (1, 200, 3, 64, 40, 100)])
+def test_ssd_scan_kernel_matches_plain(device, shape, dtype):
     from repro_torch.kernels import ssd_scan as SS
 
     B, S, nh, hp, N, Q = shape
@@ -199,11 +240,37 @@ def test_ssd_scan_kernel_matches_plain(device, shape):
            -rng.uniform(0.5, 4, (nh,)), rng.normal(size=(B, S, N)),
            rng.normal(size=(B, S, N))]
     args = [torch.from_numpy(a.astype(np.float32)).to(device) for a in f32]
+    if dtype == "bfloat16":  # x, B and C in bf16; dt and A stay float32
+        for k in (0, 3, 4):
+            args[k] = args[k].to(torch.bfloat16)
     before = SS.STATS["ssd_scan"]
     y, h = SS.ssd_scan(*args, chunk=Q)
     assert SS.STATS["ssd_scan"] == before + 1
     yp, hp_ = SS.ssd_scan_plain(*args, chunk=Q)
     torch.cuda.synchronize()
+    torch.testing.assert_close(y, yp, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(h, hp_, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_steep_decay_matches_plain(device, dtype):
+    """Decays as steep as a trained mamba2's (A down to -16, dt up to 0.5):
+    one 64-row tile spans exp(-100) and more, and no score overflows."""
+    from repro_torch.kernels import ssd_scan as SS
+
+    B, S, nh, hp, N, Q = 2, 512, 8, 64, 128, 256
+    rng = np.random.default_rng(5)
+    f32 = [rng.normal(size=(B, S, nh, hp)), rng.uniform(0.005, 0.5, (B, S, nh)),
+           -rng.uniform(2, 16, (nh,)), rng.normal(size=(B, S, N)),
+           rng.normal(size=(B, S, N))]
+    args = [torch.from_numpy(a.astype(np.float32)).to(device) for a in f32]
+    if dtype == "bfloat16":
+        for k in (0, 3, 4):
+            args[k] = args[k].to(torch.bfloat16)
+    y, h = SS.ssd_scan(*args, chunk=Q)
+    yp, hp_ = SS.ssd_scan_plain(*args, chunk=Q)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
     torch.testing.assert_close(y, yp, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(h, hp_, atol=2e-4, rtol=2e-4)
 

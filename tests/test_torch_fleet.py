@@ -214,16 +214,11 @@ def test_batched_matches_solo_and_reference(faulty):
 
 def _stage_round_trip(pol, view, jobs):
     """The coordinator's protocol for one node, through the port's batch
-    wrapper (a one-node call)."""
-    def reduce(req):
-        packed = PK.pack_windows([req], pol.device)
-        return PK.score_reduce_batch(**packed)[1][0]
-
+    wrapper (a one-node call; an idle node's guard rides in it)."""
     req = pol.stage_score(view, jobs)
     assert req is not None
-    req2 = pol.stage_round1(reduce(req))
-    if req2 is not None:
-        pol.stage_round2(reduce(req2))
+    out = PK.score_reduce_batch(**PK.pack_windows([req], pol.device))
+    pol.stage_round1(out[1][0], out[2][0] if len(out) > 2 else -1)
 
 
 def test_stale_staging_refits_on_capacity_change():
@@ -338,6 +333,56 @@ def test_complete_bursts_with_dvfs_retunes_match_reference_jax():
     solo = resize_fleet("port", "torch", False, False, **kw)
     assert schedule_of(port) == schedule_of(ref) == schedule_of(solo)
     assert any(r.f != 0 for r in port.records)
+
+
+def test_idle_guard_rides_in_one_packed_call_per_burst(monkeypatch):
+    """Arrival and completion bursts that reach idle nodes make one packed
+    call each, the idle nodes' guards inside it (counted by stand-ins for
+    the launches), and the schedule is the reference's record for
+    record."""
+    import repro_torch.core.cluster as CL
+
+    bursts = []  # (kind, [guarded segments of each packed call])
+    for name in ("score_reduce_batch", "score_reduce_multi"):
+        def counting(*a, _real=getattr(CL, name), **kw):
+            bursts[-1][1].append(kw.get("guarded", 0) if kw.get("guard") is not None else 0)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(CL, name, counting)
+    for meth, kind in (("_stage_arrival_batch", "arrival"),
+                       ("_stage_complete_batch", "complete")):
+        def staging(self, *a, _real=getattr(CL.ClusterRun, meth), _kind=kind, **kw):
+            bursts.append((_kind, []))
+            return _real(self, *a, **kw)
+
+        monkeypatch.setattr(CL.ClusterRun, meth, staging)
+    pols = []
+    ref = schedule_of(resize_fleet("ref", "vector", False, False))
+    assert schedule_of(resize_fleet("port", "torch", True, True, policies=pols)) == ref
+    # the 256-node cell's geometry at 40 nodes (test above)
+    from benchmarks.bench_fleet import synth_apps
+
+    ref_t = {c.name: synth_apps(c) for c in (RHW.H100, RHW.A100, RHW.V100)}
+    tables = {"ref": ref_t, "port": {k: carry_profiles(v) for k, v in ref_t.items()}}
+    st = streams([f"app{i}" for i in range(8)], rate=1.2, n=160, seed=7, burst=16)
+    out = {}
+    for side, engine in (("port", "torch"), ("ref", "vector")):
+        pkg = PKG[side][0]
+        cl = make_cluster(
+            side, engine,
+            pkg.HierarchicalDispatcher(pkg.EnergyAwareDispatcher(), pod_size=16,
+                                       pods_per_region=8),
+            truth_for=lambda s, t=tables[side]: t[s.chip.name],
+            chips=lambda i: ("H100", "A100", "V100")[(i // 16) % 3],
+            n=40, units=8, noise=0.0, policies=pols if side == "port" else None, window=8,
+        )
+        out[side] = schedule_of(cl.simulate(st[side]))
+    assert out["port"] == out["ref"]
+    launched = [(kind, calls) for kind, calls in bursts if calls]
+    assert launched and all(len(calls) == 1 for _, calls in launched)
+    for kind in ("arrival", "complete"):
+        assert any(calls[0] > 0 for k, calls in launched if k == kind), kind
+    assert sum(p.stage_served for p in pols) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -141,3 +141,104 @@ def test_wrapper_rejects_bad_inputs():
         P.score_reduce_batch(**dict(packed, offsets=packed["offsets"].long()))
     with pytest.raises(ValueError):
         P.score_reduce_batch(**dict(packed, params=packed["params"][:1]))
+
+
+# ---------------------------------------------------------------------------
+# The guarded packed form: each segment's idle-node guard in the same call
+# ---------------------------------------------------------------------------
+
+
+def guarded_reqs(case):
+    """Ragged nodes, every other one carrying a guard (its non-empty rows),
+    with the edge segments ``case`` names."""
+    sizes = {"single_row": [1, 30, 1, 12], "empty": [0, 30, 0, 12]}.get(case, [7, 30, 90, 12])
+    reqs = ragged_reqs(11, sizes, f=True, bias=True, mask=case != "no_mask")
+    if case == "ties":  # few distinct values: many rows tie exactly
+        rng = np.random.default_rng(12)
+        for r in reqs:
+            slot = np.arange(r["dev"].shape[1])[None, :] < r["n"][:, None]
+            r["dev"] = np.where(slot, rng.integers(0, 2, r["dev"].shape) * 0.5, 0).astype(np.float32)
+            r["g"] = np.where(slot, rng.integers(1, 3, r["g"].shape), 0).astype(np.float32)
+            r.pop("bias")
+            r.pop("f")
+            r.update(lam=0.35, g_free=4, M=8)
+    for k, r in enumerate(reqs):
+        if k % 2 == 0:
+            r["guard"] = r["n"] > 0
+    if case == "all_masked":
+        reqs[2]["mask"] = np.zeros(len(reqs[2]["n"]), bool)
+    if case == "all_guard_masked":
+        reqs[0]["guard"] = np.zeros(len(reqs[0]["n"]), bool)
+    return reqs
+
+
+def two_calls(reqs, fn):
+    """The two calls the guard replaces: one as asked, one whose mask is
+    ``mask & guard`` (-1 for a segment without a guard)."""
+    plain = [{k: v for k, v in r.items() if k != "guard"} for r in reqs]
+    s1, b1 = fn(**P.pack_windows(plain, "cpu"))
+    masked = []
+    for r, p in zip(reqs, plain):
+        both = np.asarray(r.get("guard", np.zeros(len(r["n"]), bool)), bool)
+        if r.get("mask") is not None:
+            both = both & np.asarray(r["mask"], bool)
+        masked.append(dict(p, mask=both))
+    _, b2 = fn(**P.pack_windows(masked, "cpu"))
+    return s1, b1, b2
+
+
+@pytest.mark.parametrize("form", ["batch", "multi"])
+@pytest.mark.parametrize("case", ["plain", "empty", "single_row", "all_masked",
+                                  "all_guard_masked", "ties", "no_mask"])
+def test_guarded_packed_plain_equals_two_plain_calls(form, case):
+    """Scores and both winners of every segment from one guarded packed
+    call are bitwise what two packed calls return: one with ``mask``, one
+    with ``mask & guard``; segments without a guard give -1."""
+    fn = getattr(P, f"score_reduce_{form}")
+    reqs = guarded_reqs(case)
+    packed = P.pack_windows(reqs, "cpu")
+    assert packed["guarded"] == sum("guard" in r for r in reqs)
+    scores, bests, bests_g = fn(**packed)
+    s1, b1, b2 = two_calls(reqs, fn)
+    assert torch.equal(scores, s1)
+    assert bests == b1 and bests_g == b2
+    assert all(b == -1 for r, b in zip(reqs, bests_g) if "guard" not in r)
+    if case == "all_guard_masked":
+        assert bests_g[0] == -1
+    if case == "all_masked":
+        assert bests[2] == bests_g[2] == -1
+    if case == "empty":
+        assert bests[0] == bests_g[0] == -1
+    if case == "ties":  # some segment's winner was decided by the tie-break
+        off = packed["offsets"].tolist()
+        seg = [scores[a:b][torch.isfinite(scores[a:b])] for a, b in zip(off, off[1:])]
+        assert any(int((x == x.min()).sum()) > 1 for x in seg if x.numel())
+
+
+@pytest.mark.parametrize("form", ["batch", "multi"])
+@pytest.mark.parametrize("mode", ["ref", "interpret"])
+def test_guarded_packed_matches_reference_two_calls(form, mode):
+    """One guarded packed call against the reference's idle-guard
+    sequence: a packed call, then a second one whose guarded nodes are
+    masked to their non-empty rows."""
+    reqs = guarded_reqs("plain")
+    ref_fn = getattr(R, f"score_reduce_{form}")
+    plain = [{k: v for k, v in r.items() if k != "guard"} for r in reqs]
+    ref1 = ref_fn(plain, mode=mode)
+    ref2 = ref_fn([dict(p, mask=np.asarray(r["guard"]) & np.asarray(r["mask"]))
+                   for r, p in zip(reqs, plain) if "guard" in r], mode=mode)
+    scores, bests, bests_g = getattr(P, f"score_reduce_{form}")(**P.pack_windows(reqs, "cpu"))
+    assert bests == [b for _, b in ref1]
+    assert [b for r, b in zip(reqs, bests_g) if "guard" in r] == [b for _, b in ref2]
+    want = np.concatenate([np.asarray(s) for s, _ in ref1])
+    fin = np.isfinite(want)
+    assert np.array_equal(fin, np.isfinite(scores.numpy()))
+    assert np.max(np.abs(scores.numpy()[fin] - want[fin])) <= TOL
+
+
+def test_packed_offsets_share_the_upload():
+    """The int32 offsets are a view of the one uploaded buffer."""
+    packed = P.pack_windows(guarded_reqs("plain"), "cpu")
+    assert packed["offsets"].dtype == torch.int32
+    assert packed["offsets"].untyped_storage().data_ptr() == packed["dev"].untyped_storage().data_ptr()
+    assert packed["offsets"].tolist() == [0, 7, 37, 127, 139]

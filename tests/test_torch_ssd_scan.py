@@ -1,11 +1,12 @@
 """The port's SSD scan and chunked SSD against the reference, on the CPU.
 
-On a CPU tensor ``repro_torch.kernels.ops.ssd_scan`` runs the kernel's
-plain version (the reference kernel's chunk loop in torch); it is held
+On a CPU tensor ``repro_torch.kernels.ops.ssd_scan`` runs the kernels'
+plain version, in their decomposition (C·Bᵀ once per chunk, chunk-local
+states for all chunks, the serial state pass, the outputs); it is held
 against the reference's definitional recurrence ``ref.ssd_ref`` on every
-case of ``tests/test_kernels_ssd.py`` and against the reference's Pallas
-kernel in interpret mode on two of them, at the reference tests'
-tolerance of 2e-4.  The CUDA kernel is held against the plain version in
+case of ``tests/test_kernels_ssd.py`` and the kernels' edge shapes, and
+against the reference's Pallas kernel in interpret mode on every case, at
+the reference tests' tolerance of 2e-4.  The CUDA kernel is held against the plain version in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import jax
@@ -72,6 +73,60 @@ def test_plain_matches_pallas_interpret(case):
     y, h = ops.ssd_scan(*_t(arrays), chunk=case[-1])
     _close(y, yp)
     _close(h, hp)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(c) for c in CASES])
+def test_decomposition_matches_pallas_interpret_every_case(case):
+    """The plain version's four steps (C·Bᵀ once per chunk, chunk-local
+    states in parallel, the serial state pass, the outputs) against the
+    reference's Pallas kernel in interpret mode, which walks the chunks
+    in series."""
+    arrays = make(*case[:5], seed=5)
+    yp, hp = pallas_ssd(*map(jnp.asarray, arrays), chunk=case[-1], interpret=True)
+    y, h = SS.ssd_scan_plain(*_t(arrays), chunk=case[-1])
+    _close(y, yp)
+    _close(h, hp)
+
+
+EDGES = [  # one chunk; chunk 1024; hp 128 with N 128; N 16; Q and N off 16
+    (1, 256, 2, 32, 64, 256), (1, 1024, 2, 16, 16, 1024),
+    (1, 128, 2, 128, 128, 64), (2, 128, 3, 64, 16, 32), (1, 100, 2, 16, 20, 100),
+]
+
+
+@pytest.mark.parametrize("case", EDGES, ids=[str(c) for c in EDGES])
+def test_decomposition_edge_shapes_match_reference_oracle(case):
+    arrays = make(*case[:5], seed=6)
+    yr, hr = R.ssd_ref(*map(jnp.asarray, arrays))
+    y, h = ops.ssd_scan(*_t(arrays), chunk=case[-1])
+    _close(y, yr)
+    _close(h, hr)
+
+
+def test_decomposition_steep_decay_matches_reference_oracle():
+    """Decays as steep as a trained mamba2's (A down to -16, dt up to
+    0.5), where a chunk spans exp(-100) and more."""
+    x, dt, A, Bm, Cm = make(2, 128, 3, 16, 32, seed=8)
+    dt, A = dt * 5.0, A * 4.0
+    yr, hr = R.ssd_ref(*map(jnp.asarray, (x, dt, A, Bm, Cm)))
+    y, h = ops.ssd_scan(*_t((x, dt, A, Bm, Cm)), chunk=64)
+    assert bool(torch.isfinite(y).all())
+    _close(y, yr)
+    _close(h, hr)
+
+
+def test_dropped_state_hand_off_fails_the_tolerance():
+    """The planted fault of chip_smoke.py: every chunk scanned from a zero
+    state (the hand-off dropped) must fail the 2e-4 check."""
+    B, S, nh, hp, N, Q = CASES[0]
+    arrays = _t(make(B, S, nh, hp, N, seed=7))
+    y, _ = SS.ssd_scan_plain(*arrays, chunk=Q)
+    x, dt, A, Bm, Cm = arrays
+    bad = torch.cat([SS.ssd_scan_plain(x[:, c:c + Q], dt[:, c:c + Q], A, Bm[:, c:c + Q],
+                                       Cm[:, c:c + Q], chunk=Q)[0]
+                     for c in range(0, S, Q)], dim=1)
+    assert torch.equal(bad[:, :Q], y[:, :Q])  # the first chunk starts from zero anyway
+    assert not torch.allclose(bad, y, atol=TOL, rtol=TOL)
 
 
 def test_bfloat16_inputs_match_reference_oracle():
