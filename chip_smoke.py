@@ -20,13 +20,15 @@ and every kernel of each path must have been launched.  The serving path
 zoo -- serves hymba-1.5b at full width (cell ``serve_hymba_1_5b_p2048``:
 4 prompts of 2,048 tokens, 32 decode steps, bf16 and float32), its
 prefill launching ``flash_attention`` in every layer (bf16: the wgmma
-kernel on the tensor cores; float32: the CUDA-core kernel), against the
-plain blocked-attention route; ``ssd_forward(use_pallas=True)`` runs one
+kernel on the tensor cores; float32: the three-pass TF32 kernel, also on
+the tensor cores), against the plain blocked-attention route; ``ssd_forward(use_pallas=True)`` runs one
 full-width mamba2-2.7b layer through ``ssd_scan`` (cell
 ``ssd_layer_mamba2_2_7b_s4096``) against the chunked form.
 
 Phases: 1 device and build (and the tensor-core instructions in the SASS
-of the bf16 flash and ssd kernels), 2 kernels vs plain versions, 3 paper node, 4
+of the flash kernels and the bf16 ssd kernels; a planted fault's build,
+the float32 flash kernel with one TF32 pass, beside it), 2 kernels vs
+plain versions, 3 paper node, 4
 elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer.
 ``score_reduce`` carries the idle-node guard in its one launch
 (``guard=``); phases 3-5 print its guarded calls, and phase 6 the
@@ -44,10 +46,12 @@ of JAX and nothing of the reference package.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -67,6 +71,7 @@ FLEET_APPS, FLEET_JOBS, FLEET_WINDOW = 8, 2048, 8
 CHIP_SLOW = {"h100": 1.0, "a100": 1.6, "v100": 2.6}
 KERNELS = ("score_reduce", "score_reduce_batch", "score_reduce_multi")
 BF16_OPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 tensor cores, dense
 # the model kernels' cases: the reference's kernel tests
 # (tests/test_kernels_flash.py, tests/test_kernels_ssd.py) plus the
 # serving path's shapes.  flash: (B, S, H, KVH, hd, window, softcap, causal)
@@ -84,6 +89,16 @@ FLASH_CASES = (
     (1, 300, 4, 2, 16, 0, 25.0, False), (1, 300, 4, 2, 256, 0, 0.0, False),
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference tests'
+# steep scores, as trained weights give them: q and k x FLASH_STEEP (score
+# std about 9).  There float32 arithmetic's own error nears 2e-5 (the plain
+# float32 version is 0.4-1.0 of it from the exact answer on the CPU at
+# these shapes), so these cases hold the kernel to the plain version run
+# in float64 on the same inputs, at the same tolerances.
+FLASH_STEEP, FLASH_STEEP_CASES = 3.0, (
+    (1, 256, 4, 2, 64, 0, 0.0, True), (1, 300, 4, 2, 128, 0, 0.0, False),
+    (1, 200, 2, 1, 256, 0, 0.0, True), (2, 512, 8, 2, 128, 0, 0.0, True),
+)
+FLASH_FAULT = "-DREPRO_FLASH_F32_ONE_PASS"  # planted fault: the lo terms dropped
 # ssd: (B, S, nh, hp, N, chunk)
 SSD_CASES = (
     (2, 128, 4, 32, 64, 32), (1, 256, 2, 64, 128, 64), (2, 64, 8, 16, 32, 16),
@@ -154,6 +169,36 @@ def sass_mma_counts(lib_path):
         elif fn is not None and ("HGMMA" in line or "HMMA" in line):
             counts[fn] += 1
     return counts
+
+
+def ptxas_by_kernel(log):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    ``-Xptxas -v`` lines of a build log, names demangled by the toolkit's
+    ``cu++filt`` where it has one."""
+    from repro_torch.kernels import _build
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = [None, None, None]
+        elif fn and "spill stores" in line:
+            out[fn][1:] = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+        elif fn and "Used" in line and "registers" in line:
+            out[fn][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    names = list(out)
+    try:
+        tool = Path(_build.nvcc()).parent / "cu++filt"
+    except RuntimeError:  # no toolkit: the names stay mangled
+        tool = None
+    if names and tool is not None and tool.exists():
+        dem = subprocess.run([str(tool), *names], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(dem) == len(names):
+            names = [re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\(int\)", "", d)
+                     .split("(")[0] for d in dem]
+    return {n: tuple(v) for n, v in zip(names, out.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -556,14 +601,16 @@ def phase_kernels(device) -> Diff:
     return diff
 
 
-def flash_inputs(case, dtype, device, seed):
-    """Seeded q, k, v of a ``FLASH_CASES`` entry, made on the card."""
+def flash_inputs(case, dtype, device, seed, amp=1.0):
+    """Seeded q, k, v of a ``FLASH_CASES`` entry, made on the card; q and k
+    times ``amp``."""
     import torch
 
     B, S, H, KVH, hd = case[:5]
     gen = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn((B, S, n, hd), generator=gen, device=device).to(dtype)
-            for n in (H, KVH, KVH)]
+    q, k, v = [torch.randn((B, S, n, hd), generator=gen, device=device)
+               for n in (H, KVH, KVH)]
+    return [t.to(dtype) for t in (q * amp, k * amp, v)]
 
 
 def ssd_inputs(case, dtype, device, seed):
@@ -584,32 +631,51 @@ def ssd_inputs(case, dtype, device, seed):
             -uni(0.5, 4.0, nh), rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype))
 
 
-def phase_model_kernels(device):
+def tol_share(got, want, tol) -> float:
+    """max |got - want| / (tol + tol |want|): 1.0 uses up an allclose at tol."""
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def phase_model_kernels(device, one_pass):
     """``flash_attention`` and ``ssd_scan`` against their plain versions on
-    the same card tensors, float32 and bfloat16; returns each kernel's
-    largest max abs error."""
+    the same card tensors, float32 and bfloat16; ``one_pass`` is the kernel
+    library built with ``FLASH_FAULT``, whose float32 flash kernel must
+    fail the check.  Returns each kernel's largest max abs error."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SS
 
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the plain float32 versions must run without TF32 matmuls")
     # "flash_attention" is the bf16 (wgmma) kernel, the float32 one its own;
     # "ssd_scan" the bf16 instantiation of the ssd kernels, float32 its own
     err = {"flash_attention": 0.0, "flash_attention_float32": 0.0, "ssd_scan": 0.0,
            "ssd_scan_float32": 0.0}
     hds = set()
-    for i, case in enumerate(FLASH_CASES):
+    for i, case in enumerate(FLASH_CASES + FLASH_STEEP_CASES):
+        steep = i >= len(FLASH_CASES)
         window, softcap, causal = case[5:]
         kw = dict(causal=causal, window=window, softcap=softcap)
         for name, tol in FLASH_TOL.items():
-            q, k, v = flash_inputs(case, getattr(torch, name), device, seed=i)
-            got = FA.flash_attention(q, k, v, **kw).float()
-            want = FA.flash_attention_plain(q, k, v, **kw).float()
+            q, k, v = flash_inputs(case, getattr(torch, name), device, seed=i,
+                                   amp=FLASH_STEEP if steep else 1.0)
+            got = FA.flash_attention(q, k, v, **kw).double()
+            plain = FA.flash_attention_plain(q, k, v, **kw).double()
+            want = (FA.flash_attention_plain(q.double(), k.double(), v.double(), **kw)
+                    if steep else plain)
             d = float((got - want).abs().max())
             check(torch.allclose(got, want, atol=tol, rtol=tol),
-                  f"flash_attention {case} {name}: max abs err {d} (tol {tol})")
+                  f"flash_attention {case} {name}{' steep' * steep}: max abs err {d} "
+                  f"(tol {tol})")
             key = "flash_attention" if name == "bfloat16" else "flash_attention_float32"
             err[key] = max(err[key], d)
-            print(f"  flash_attention {case} {name}: max_abs_err={d!r}")
+            extra = ""
+            if steep:  # the kernel and the plain float32 version, each off the exact answer
+                extra = (f" (vs float64; share of tol {tol_share(got, want, tol)!r}; plain "
+                         f"{name} vs float64 {tol_share(plain, want, tol)!r}, kernel vs "
+                         f"plain {name} {tol_share(got, plain, tol)!r})")
+            print(f"  flash_attention {case} {name}{' steep' * steep}: "
+                  f"max_abs_err={d!r}{extra}")
         hds.add(case[4])
     check(hds == set(FA.HEAD_DIMS), f"flash cases miss head dims {set(FA.HEAD_DIMS) - hds}")
     # planted fault: the kernel with the window ignored must fail the check
@@ -621,6 +687,18 @@ def phase_model_kernels(device):
     check(not torch.allclose(bad, want, atol=tol, rtol=tol),
           f"flash_attention: the check missed the planted fault (window ignored), {d}")
     print(f"  flash_attention {FLASH_PATH} bfloat16, window ignored (planted fault): "
+          f"max_abs_err={d!r}, caught")
+    # planted fault: the float32 kernel with one TF32 pass (lo terms dropped)
+    window, softcap, causal = FLASH_PATH[5:]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    tol = FLASH_TOL["float32"]
+    q, k, v = flash_inputs(FLASH_PATH, torch.float32, device, seed=0)
+    bad = FA.launch_with(one_pass, q, k, v, scale=None, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    d = float((bad - want).abs().max())
+    check(not torch.allclose(bad, want, atol=tol, rtol=tol),
+          f"flash_attention: the check missed the planted fault (one TF32 pass), {d}")
+    print(f"  flash_attention {FLASH_PATH} float32, one TF32 pass (planted fault): "
           f"max_abs_err={d!r}, caught")
     for i, case in enumerate(SSD_CASES):
         for name in ("float32", "bfloat16"):
@@ -1277,19 +1355,32 @@ def time_packed(device, name, p):
     )
 
 
-def profiled(fn):
+def profiled(fn, kernels=(), reps=0):
     """Run ``fn`` under ``torch.profiler`` (CPU + CUDA); returns the host
-    wall seconds and the key averages of everything that ran."""
+    wall seconds and the key averages of everything that ran.  Where
+    ``kernels`` names kernels that ``fn`` launches ``reps`` times each, a
+    profile that counts otherwise is taken once more, and the line says
+    so: the profiler can lose a record, and a lost record does not repeat,
+    while a launch too many or too few does.  The callers hold the profile
+    returned to the exact count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(2 if kernels else 1):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return wall, prof.key_averages()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        avgs = prof.key_averages()
+        dev = device_kernels(avgs)
+        counts = {n: sum(c for k, (c, _) in dev.items() if n in k) for n in kernels}
+        if all(c == reps for c in counts.values()):
+            break
+        if attempt == 0:
+            print(f"  profiler: launches {counts} for {reps} calls; profiled once more")
+    return wall, avgs
 
 
 def device_kernels(avgs):
@@ -1322,7 +1413,7 @@ def profile_lines(device, path):
             K.score_reduce(*args, **kw)
             K.score_reduce_multi(**packed)
 
-    _, avgs = profiled(calls)
+    _, avgs = profiled(calls, ("score_reduce_kernel", "score_windows_kernel"), reps)
     dev = device_kernels(avgs)
     if not dev:
         print("  profiler: no device time seen; kernel device us not measured")
@@ -1342,7 +1433,8 @@ def profile_lines(device, path):
     batch = {k: v for k, v in path.batch[2].items() if k not in ("guard", "guarded")}
     guard = (batch["n"] > 0).float()
     for tag, kw in (("", {}), (" with the guard", {"guard": guard})):
-        _, avgs = profiled(lambda: [K.score_reduce_batch(**batch, **kw) for _ in range(reps)])
+        _, avgs = profiled(lambda: [K.score_reduce_batch(**batch, **kw) for _ in range(reps)],
+                           ("score_windows_kernel",), reps)
         dev = device_kernels(avgs)
         packed_n = [c for k, (c, _) in dev.items() if "score_windows_kernel" in k]
         check(not dev or packed_n == [reps],
@@ -1428,8 +1520,13 @@ def time_flash(device, dtype="bfloat16"):
     events, its plain version, and ``scaled_dot_product_attention`` with
     ``enable_gqa`` and the window as a boolean mask as the library
     yardstick, in turns.  bf16 (the serving type) runs the wgmma kernel,
-    float32 the CUDA-core kernel; the bound takes the type's peak rate
-    (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s float32)."""
+    float32 the three-pass TF32 kernel (its pre-pass included).  The bound
+    counts the work the function needs, once, at the card's fastest rate
+    for its operand type: bf16 at 989 TFLOP/s, float32 at 495 TFLOP/s
+    (TF32), against the bytes.  Beside it, float32's ``bound_ms_issued``
+    counts the three TF32 passes the kernel issues and
+    ``bound_ms_cuda_cores`` the work once at the 67 TFLOP/s of float32
+    outside the tensor cores."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -1453,8 +1550,11 @@ def time_flash(device, dtype="bfloat16"):
     ops = flash_ops(B, S, H, hd, window, causal)
     size = q.element_size()
     n_bytes = size * (2 * B * S * H * hd + 2 * B * S * KVH * hd)  # q, o; k, v
-    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    passes, rate = (1, BF16_OPS_PER_S) if dtype == "bfloat16" else (3, TF32_OPS_PER_S)
     t_ops, t_bytes = ops / rate, n_bytes / HBM_BYTES_PER_S
+    extra = {} if dtype == "bfloat16" else dict(
+        bound_ms_issued=max(passes * ops / rate, t_bytes) * 1e3,
+        bound_ms_cuda_cores=max(ops / FP32_OPS_PER_S, t_bytes) * 1e3)
     reps = 50 if dtype == "bfloat16" else 20
     ms = [cuda_ms(kern, reps), cuda_ms(sdpa, reps), cuda_ms(sdpa, reps), cuda_ms(kern, reps)]
     return dict(shape=case, dtype=dtype, ms=min(ms[0], ms[3]), ms_turns=[ms[0], ms[3]],
@@ -1463,7 +1563,7 @@ def time_flash(device, dtype="bfloat16"):
                 library_max_abs_vs_kernel=lib_err,
                 bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                ops=ops, bytes=n_bytes)
+                ops=ops, ops_issued=passes * ops, bytes=n_bytes, **extra)
 
 
 def time_ssd(device, dtype="bfloat16"):
@@ -1471,8 +1571,13 @@ def time_ssd(device, dtype="bfloat16"):
     model's type): the call by CUDA events (its four kernels), its plain
     version, and each kernel's device µs per call from the profiler.  No
     single PyTorch call computes the SSD scan, so there is no library
-    time.  The bound takes the type's peak rate (989 TFLOP/s bf16 tensor
-    cores, 67 TFLOP/s float32)."""
+    time.  The bound counts the work the function needs, once, at the
+    card's fastest rate for its operand type: bf16 at 989 TFLOP/s, float32
+    at 495 TFLOP/s (TF32), against the bytes.  Beside it, float32's
+    ``bound_ms_issued`` counts the three-term bf16 split the kernels issue
+    (three bf16 products each, 989 TFLOP/s) and ``bound_ms_cuda_cores``
+    the work once at the 67 TFLOP/s of float32 outside the tensor
+    cores."""
     import re
 
     import torch
@@ -1491,15 +1596,20 @@ def time_ssd(device, dtype="bfloat16"):
     size = args[0].element_size()
     n_bytes = (size * (B * S * nh * hp + 2 * B * S * N) + 4 * (B * S * nh + nh)
                + 4 * (B * S * nh * hp + B * nh * hp * N))
-    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    passes, rate = (1, BF16_OPS_PER_S) if dtype == "bfloat16" else (3, TF32_OPS_PER_S)
     t_ops, t_bytes = ops / rate, n_bytes / HBM_BYTES_PER_S
+    extra = {} if dtype == "bfloat16" else dict(
+        bound_ms_issued=max(passes * ops / BF16_OPS_PER_S, t_bytes) * 1e3,
+        bound_ms_cuda_cores=max(ops / FP32_OPS_PER_S, t_bytes) * 1e3)
 
     def kern():
         return SS.ssd_scan(*args, chunk=Q)
 
     ms = [cuda_ms(kern, 20), cuda_ms(kern, 20)]
     reps = 10
-    _, avgs = profiled(lambda: [kern() for _ in range(reps)])
+    _, avgs = profiled(lambda: [kern() for _ in range(reps)],
+                       ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel"),
+                       reps)
     parts = {}
     for k, (count, us) in device_kernels(avgs).items():
         m = re.search(r"(ssd_\w+?_kernel)", k)
@@ -1511,17 +1621,21 @@ def time_ssd(device, dtype="bfloat16"):
                 device_us=sum(parts.values()) if parts else None, device_us_per_kernel=parts,
                 library_ms=None, bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                ops=ops, bytes=n_bytes)
+                ops=ops, ops_issued=passes * ops, bytes=n_bytes, **extra)
 
 
-def profile_model_kernel(fn, name, reps=10):
-    """Device µs per launch of ``name``'s kernel under the profiler."""
-    _, avgs = profiled(lambda: [fn() for _ in range(reps)])
-    dev = {k: v for k, v in device_kernels(avgs).items() if name in k}
-    if not dev:
-        return None
-    count = sum(c for c, _ in dev.values())
-    return sum(us for _, us in dev.values()) / count
+def profile_model_kernel(fn, names, reps=10):
+    """Device µs per call of ``fn`` in the kernels named (each launched once
+    a call) under the profiler, and each kernel's; (None, {}) when the
+    profiler saw none of them."""
+    _, avgs = profiled(lambda: [fn() for _ in range(reps)], names, reps)
+    parts = {}
+    for k, (count, us) in device_kernels(avgs).items():
+        for name in names:
+            if name in k:
+                check(count == reps, f"{name}: {count} launches for {reps} calls")
+                parts[name] = us / reps
+    return (sum(parts.values()) if parts else None), parts
 
 
 # ---------------------------------------------------------------------------
@@ -1632,7 +1746,7 @@ def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
                   f"serve {dtype}: flash_attention launches per prefill "
                   f"{n1 - n0}, {n2 - n1} (want {L}) and "
                   f"{FA.STATS['flash_attention'] - n2} on the plain routes (want 0)")
-            launches[dtype] = n2 - n0  # bf16: the wgmma kernel, float32: the CUDA-core one
+            launches[dtype] = n2 - n0  # bf16: the wgmma kernel, float32: the TF32 one
             check(tuple(logits["k"].shape) == (B, 1, cfg.vocab_size)
                   and bool(torch.isfinite(logits["k"].float()).all()),
                   f"serve {dtype}: prefill logits not finite of shape (B, 1, V)")
@@ -1793,22 +1907,30 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     cached = _build.library_path().exists()
     t0 = time.perf_counter()
-    _build.library()
-    build_s = time.perf_counter() - t0
+    # the planted fault's build (flash_attention.cu alone, one TF32 pass,
+    # a library of its own hash) runs beside the real one
+    with ThreadPoolExecutor(2) as pool:
+        fault_build = pool.submit(_build.build, [FLASH_FAULT], ["flash_attention"])
+        _build.library()
+        build_s = time.perf_counter() - t0
+        one_pass = _build.load(fault_build.result())
     print(f"  kernels built in {build_s:.3f} s ({'cached' if cached else 'fresh'}) "
-          f"-> {_build.library_path().relative_to(ROOT)}")
-    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-        elif line.startswith(("$", "compile_s", "build_s")):
+          f"-> {_build.library_path().relative_to(ROOT)}; with {FLASH_FAULT} "
+          f"(planted fault) in {time.perf_counter() - t0:.3f} s")
+    log = _build.library_path().with_suffix(".log").read_text()
+    for line in log.splitlines():
+        if line.startswith(("$", "compile_s", "build_s")):
             print(f"  nvcc: {line.split(' -')[0] if line[0] == '$' else line}")
+    for fn, (regs, stores, loads) in sorted(ptxas_by_kernel(log).items()):
+        print(f"  ptxas: {fn} registers={regs} spill_stores={stores} spill_loads={loads}")
     mma = sass_mma_counts(_build.library_path())
     if mma is None:
         print("  sass: no cuobjdump in the toolkit; tensor-core instructions not counted")
-    else:  # the bf16 flash kernel must run its products on the tensor cores
-        wg = {k: n for k, n in mma.items() if "flash_kernel_wgmma" in k}
-        check(wg and all(n > 0 for n in wg.values()),
-              f"flash_kernel_wgmma has no HGMMA/HMMA in its SASS: {wg}")
+    else:  # both flash kernels must run their products on the tensor cores
+        for name, n_inst in (("flash_kernel_wgmma", 6), ("flash_kernel_tf32", 6)):
+            wg = {k: n for k, n in mma.items() if name in k}
+            check(len(wg) == n_inst and all(n > 0 for n in wg.values()),
+                  f"{name} lacks HGMMA/HMMA in its SASS: {wg}")
         # and the bf16 ssd kernels (C.B^T, chunk states, outputs) theirs
         ssd = {k: n for k, n in mma.items() if "ssd_" in k and "bfloat16" in k}
         check(len(ssd) == 9 and all(n > 0 for n in ssd.values()),
@@ -1825,7 +1947,7 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}")
     diff = phase_kernels(device)
     print(f"  cases={diff.cases} max_abs_err={diff.max_abs}")
-    model_err = phase_model_kernels(device)
+    model_err = phase_model_kernels(device, one_pass)
     print(f"  model kernels: max_abs_err={model_err}")
     lap("2")
 
@@ -1855,15 +1977,16 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SS
 
-    fl = flash_inputs(FLASH_PATH, torch.bfloat16, device, seed=99)
     window, softcap, causal = FLASH_PATH[5:]
-    model_times["flash_attention"]["device_us"] = profile_model_kernel(
-        lambda: FA.flash_attention(*fl, causal=causal, window=window, softcap=softcap),
-        "flash_kernel_wgmma")
-    fl = flash_inputs(FLASH_PATH, torch.float32, device, seed=99)
-    model_times["flash_attention_float32"]["device_us"] = profile_model_kernel(
-        lambda: FA.flash_attention(*fl, causal=causal, window=window, softcap=softcap),
-        "flash_kernel<")
+    for name, dtype, kerns in (
+            ("flash_attention", torch.bfloat16, ("flash_kernel_wgmma",)),
+            ("flash_attention_float32", torch.float32,
+             ("flash_split_kv_kernel", "flash_kernel_tf32"))):
+        fl = flash_inputs(FLASH_PATH, dtype, device, seed=99)
+        t = model_times[name]
+        t["device_us"], t["device_us_per_kernel"] = profile_model_kernel(
+            lambda: FA.flash_attention(*fl, causal=causal, window=window, softcap=softcap),
+            kerns)
     del fl
     for name, t in model_times.items():
         print(f"  {name} at {t['shape']} {t.get('dtype', 'bfloat16')}: " + " ".join(

@@ -11,7 +11,10 @@ with a plain C interface, which is loaded with ``ctypes``:
 
 The build runs at first use, never at import, and is keyed on a hash of
 the sources and the flags, so an edited kernel rebuilds and an unchanged
-one loads the library already built.  ``nvcc``'s output (``-Xptxas -v``:
+one loads the library already built.  ``build(defines, names)`` builds a
+variant -- some of the sources, with ``-D`` flags -- whose hash, and so
+whose library, is its own, and ``load`` binds any such library (a planted
+fault's, for a check that must fail).  ``nvcc``'s output (``-Xptxas -v``:
 registers, shared memory and spills per kernel) is kept beside the
 library as ``<name>.log``, with each step's own seconds (``compile_s``)
 and the whole build's (``build_s``).  Each entry point's ``argtypes``
@@ -30,7 +33,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -46,9 +49,11 @@ _SIGNATURES = {
     # dev, g, f, n, bias, mask, guard, offsets, params, W, R, S, out,
     # host_best, stream (score_reduce_multi and score_reduce_batch)
     "score_reduce_multi_launch": [_P] * 9 + [_I] * 3 + [_P] * 3,
-    # q, k, v, o, B, Sq, Skv, H, KVH, hd, dtype, causal, window,
+    # q, k, v, o, scratch, B, Sq, Skv, H, KVH, hd, dtype, causal, window,
     # scale, softcap, stream
-    "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
+    "flash_attention_launch": [_P] * 5 + [_I] * 9 + [_F, _F, _P],
+    # B, Skv, KVH, hd, dtype -> float32 words of scratch (c_longlong)
+    "flash_attention_scratch": [_I] * 5,
     # x, dt, A, Bm, Cm, y, h, scratch, B, S, nh, hp, N, Q, dtype, stream
     "ssd_scan_launch": [_P] * 8 + [_I] * 7 + [_P],
     # B, S, nh, hp, N, Q, dtype, scratch_floats (out), smem_bytes (out)
@@ -57,8 +62,12 @@ _SIGNATURES = {
 }
 
 
-def sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
+_RESTYPES = {"flash_attention_scratch": ctypes.c_longlong}
+
+
+def sources(names: Sequence[str] = ()) -> List[Path]:
+    """The ``csrc/*.cu`` sources, or those whose stems are in ``names``."""
+    return sorted(p for p in CSRC.glob("*.cu") if not names or p.stem in names)
 
 
 def nvcc() -> str:
@@ -74,9 +83,9 @@ def nvcc() -> str:
     )
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+def library_path(defines: Sequence[str] = (), names: Sequence[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
+    for src in sources(names):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"
@@ -91,10 +100,11 @@ def _run(cmd) -> Tuple[int, str]:
                              f"compile_s={time.perf_counter() - t0:.3f}\n")
 
 
-def build() -> Path:
-    """Compile the sources unless the library for their hash exists.
+def build(defines: Sequence[str] = (), names: Sequence[str] = ()) -> Path:
+    """Compile the sources (those named, all by default; each with the
+    ``-D`` flags in ``defines``) unless the library for their hash exists.
     Returns the library's path; raises with nvcc's output on failure."""
-    out = library_path()
+    out = library_path(defines, names)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -103,9 +113,10 @@ def build() -> Path:
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
         t0 = time.perf_counter()
-        objs = [work / f"{src.stem}.o" for src in sources()]
-        cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                for o, src in zip(objs, sources())]
+        srcs = sources(names)
+        objs = [work / f"{src.stem}.o" for src in srcs]
+        cmds = [[nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", str(o), str(src)]
+                for o, src in zip(objs, srcs)]
         with ThreadPoolExecutor(len(cmds)) as pool:
             done = list(pool.map(_run, cmds))
         failed = any(rc != 0 for rc, _ in done)
@@ -126,12 +137,18 @@ def build() -> Path:
     return out
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare the entry points it has."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return load(build())

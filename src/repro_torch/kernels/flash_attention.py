@@ -13,15 +13,33 @@ q's type.  Positions count from 0 on both axes, as in the reference.
 
 On a CUDA tensor :func:`flash_attention` launches a hand-written kernel
 of ``csrc/flash_attention.cu`` (built at first use by ``_build``) or
-raises; it never falls back.  The input type picks the kernel: bfloat16
-(the serving type) runs ``flash_kernel_wgmma``, both products on the
-tensor cores (``wgmma``, bf16 in, float32 accumulation, P rounded to
-bf16 for P·V), every head dim of :data:`HEAD_DIMS`; float32 runs
-``flash_kernel``, float32 FMAs on the CUDA cores, since TF32 products
-would miss the float32 tolerance.  On a CPU tensor it runs
-:func:`flash_attention_plain`, the materialised-scores definition (the
-reference's ``ref.flash_attention_ref``).  Only a kernel launch counts in
-``STATS``.
+raises; it never falls back.  The input type picks the kernel, every
+head dim of :data:`HEAD_DIMS` on both:
+
+* bfloat16 (the serving type) runs ``flash_kernel_wgmma``: both products
+  on the tensor cores (``wgmma``, bf16 in, float32 accumulation, P
+  rounded to bf16 for P·V).
+* float32 runs ``flash_kernel_tf32``, both products on the tensor cores
+  as a three-pass TF32 split: each operand x becomes hi = tf32(x) and
+  lo = tf32(x − hi), and a product is lo·hi + hi·lo + hi·hi in float32
+  accumulators.  One TF32 pass keeps about three decimal digits, which
+  the exp of a steep score turns into errors far above the 2e-5
+  tolerance; the split keeps about 2⁻²² a product.  A pre-pass kernel,
+  ``flash_split_kv_kernel``, splits K and V once per call into a
+  scratch buffer this wrapper allocates (K hi/lo as (B, KVH, Skp, hd);
+  V hi/lo transposed, (B, KVH, hd, Skp), since TF32 ``wgmma`` reads only
+  K-major operands; each 8-key group of Vᵀ in the order 0,2,4,6,1,3,5,7,
+  so the P accumulator is the A fragment in place; Skp is Skv rounded up
+  to 64, zero-filled), so the G query heads of a KV head share one
+  split.  Shared memory per block: 41 / 81 KB at hd 16 / 32 (64-key
+  tiles, two stages), 65 / 97 KB at hd 64 / 96 (32-key tiles, one
+  stage), 193 KB at hd 128 (32-key tiles, two stages) and at hd 256
+  (16-key tiles, one stage).  The pre-pass and the main kernel together
+  are one launch in ``STATS``.
+
+On a CPU tensor it runs :func:`flash_attention_plain`, the
+materialised-scores definition (the reference's
+``ref.flash_attention_ref``).  Only a kernel launch counts in ``STATS``.
 
 The reference's TPU tiling knobs (``block_q``/``block_k``) are gone: the
 kernel picks its own tiles, and a ragged last tile is masked, so any
@@ -46,12 +64,12 @@ def reset_stats() -> None:
     STATS["flash_attention"] = 0
 
 
-def _check(q, k, v):
+def _check(q, k, v, dtypes=tuple(_DTYPES)):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise TypeError(f"{name} must be a 4-D torch tensor")
-        if t.dtype not in _DTYPES:
-            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, q is "
                              f"{q.dtype} on {q.device}")
@@ -69,12 +87,16 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           softcap: float = 0.0,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version: the full (Sq, Skv) score matrix per head,
-    float32 softmax.  Same arguments and result as :func:`flash_attention`."""
-    B, Sq, Skv, H, KVH, hd = _check(q, k, v)
+    float32 softmax.  Same arguments and result as :func:`flash_attention`.
+    It also takes float64 tensors and then computes in float64: the exact
+    answer that the float32 kernel is held to where float32 arithmetic's
+    own error nears the tolerance (steep scores at large head dims)."""
+    B, Sq, Skv, H, KVH, hd = _check(q, k, v, (*_DTYPES, torch.float64))
     G = H // KVH
     scale = scale or 1.0 / math.sqrt(hd)
+    work = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(B, Sq, KVH, G, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(work), k.to(work)) * scale
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     qp = torch.arange(Sq, device=q.device)
@@ -86,7 +108,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         mask &= kp[None, :] > qp[:, None] - window
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(work))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -110,23 +132,37 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:  # the bf16 kernel copies 16-byte chunks
+        if t.data_ptr() % 16:  # the kernels copy 16-byte chunks
             raise ValueError(f"{name} must be 16-byte aligned")
     if Skv == 0:
         raise ValueError("flash_attention needs at least one key")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if q.numel() == 0:
+        return torch.empty_like(q)
     from repro_torch.kernels._build import library
 
+    out = launch_with(library(), q, k, v, causal=causal, window=window,
+                      softcap=softcap, scale=scale)
+    STATS["flash_attention"] += 1
+    return out
+
+
+def launch_with(lib, q, k, v, *, causal, window, softcap, scale):
+    """Launch ``flash_attention_launch`` of the kernel library ``lib`` on
+    checked CUDA tensors and return the output; counts nothing.  The
+    float32 route's scratch (the split K and Vᵀ) is allocated here."""
+    B, Sq, Skv, H, KVH, hd = _check(q, k, v)
+    dtype = _DTYPES[q.dtype]
+    out = torch.empty_like(q)
+    n = lib.flash_attention_scratch(B, Skv, KVH, hd, dtype)
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     scale = scale or 1.0 / math.sqrt(hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = library().flash_attention_launch(
+    err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Skv, H, KVH, hd, _DTYPES[q.dtype], int(bool(causal)),
-        int(window), float(scale), float(softcap), ctypes.c_void_p(stream),
+        scratch.data_ptr() if n else None, B, Sq, Skv, H, KVH, hd, dtype,
+        int(bool(causal)), int(window), float(scale), float(softcap),
+        ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"flash_attention launch: CUDA error {err}")
-    STATS["flash_attention"] += 1
     return out

@@ -205,22 +205,36 @@ def test_fleet_stages_through_the_batch_kernel(device):
                                    (1, 300, 4, 2, 16, 0, 25.0, False),
                                    (1, 300, 4, 2, 32, 0, 25.0, False),
                                    (1, 300, 4, 2, 96, 0, 25.0, False),
-                                   (1, 300, 4, 2, 256, 0, 25.0, False)])
+                                   (1, 300, 4, 2, 256, 0, 25.0, False),
+                                   # steep scores: q and k x 3 (score std about 9)
+                                   (1, 256, 4, 2, 64, 0, 0.0, True, 3.0),
+                                   (1, 300, 4, 2, 128, 0, 0.0, False, 3.0),
+                                   (1, 200, 2, 1, 256, 0, 0.0, True, 3.0)])
 def test_flash_attention_kernel_matches_plain(device, shape, dtype, tol):
+    """The kernel against its plain version on the same card tensors; the
+    plain float32 version runs without TF32.  On steep scores float32
+    arithmetic's own error nears 2e-5 (the plain float32 version is 0.4-1.0
+    of it from the exact answer there), so those cases hold the kernel to
+    the plain version run in float64 on the same inputs."""
     from repro_torch.kernels import flash_attention as FA
 
-    B, S, H, KVH, hd, window, softcap, causal = shape
+    B, S, H, KVH, hd, window, softcap, causal, *amp = shape
     rng = np.random.default_rng(S)
     q, k, v = (torch.from_numpy(rng.normal(size=(B, S, n, hd)).astype(np.float32))
-               .to(device, getattr(torch, dtype)) for n in (H, KVH, KVH))
+               for n in (H, KVH, KVH))
+    if amp:
+        q, k = q * amp[0], k * amp[0]
+    q, k, v = (t.to(device, getattr(torch, dtype)) for t in (q, k, v))
     kw = dict(causal=causal, window=window, softcap=softcap)
     before = FA.STATS["flash_attention"]
     got = FA.flash_attention(q, k, v, **kw)
     assert FA.STATS["flash_attention"] == before + 1
-    want = FA.flash_attention_plain(q, k, v, **kw)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = FA.flash_attention_plain(*((t.double() for t in (q, k, v)) if amp else (q, k, v)),
+                                    **kw)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.double(), want.double(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -5,10 +5,13 @@ kernel's plain version (materialised scores); it is held against the
 reference's ``ref.flash_attention_ref`` on every case of
 ``tests/test_kernels_flash.py``, and against the reference's Pallas
 kernel in interpret mode on two of them.  Tolerances are the reference
-tests': 2e-5 in float32, 2e-2 in bfloat16.  The CUDA kernel itself is
-held against the plain version in ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.
+tests': 2e-5 in float32, 2e-2 in bfloat16.  The float32 CUDA kernel's
+arithmetic, a three-pass TF32 split, is emulated here and held to 2e-5
+of float64 attention.  The CUDA kernels themselves are held against the
+plain version in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,3 +124,109 @@ def test_wrapper_refuses_bad_arguments():
         ops.flash_attention(q.double(), k.double(), k.double())
     with pytest.raises(ValueError):
         ops.flash_attention(q, q.to(torch.bfloat16), q)
+
+
+# ---------------------------------------------------------------------------
+# The float32 kernel's arithmetic (three-pass TF32 split), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+SPLIT_CASES = [  # (B, S, H, KVH, hd, window, softcap, causal, amplitude of q and k)
+    (1, 300, 4, 2, 16, 0, 25.0, False, 1.0),
+    (2, 192, 6, 2, 64, 96, 20.0, True, 1.0),
+    (1, 256, 8, 2, 32, 64, 0.0, True, 1.0),
+    (1, 333, 6, 2, 96, 100, 0.0, True, 1.0),
+    (1, 300, 4, 2, 256, 0, 0.0, False, 1.0),
+    # steep scores (std about 9), the size trained weights give
+    (1, 256, 4, 2, 64, 0, 0.0, True, 3.0),
+    (1, 300, 4, 2, 128, 0, 0.0, False, 3.0),
+    (1, 200, 2, 1, 256, 0, 0.0, True, 3.0),
+]
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: to nearest (ties away from zero), low 13 bits 0."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b as the kernel's wgmma chains compute it: operands split into
+    hi = tf32(x) and lo = tf32(x - hi); lo.hi, hi.lo, then hi.hi (or
+    hi.hi alone for ``passes=1``), 8 columns a step, each step's products
+    summed exactly and added to one float32 accumulator."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    chains = [(al, bh), (ah, bl), (ah, bh)] if passes == 3 else [(ah, bh)]
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for x, y in chains:
+        for k0 in range(0, a.shape[-1], 8):
+            step = x[..., k0:k0 + 8].double() @ y[..., k0:k0 + 8, :].double()
+            acc = (acc.double() + step).float()
+    return acc
+
+
+def _attention(q, k, v, *, causal, window, softcap, passes=None):
+    """Materialised attention: in float64 (``passes=None``), or with both
+    products emulated as the float32 kernel issues them."""
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    dt = torch.float64 if passes is None else torch.float32
+    qg = (q.to(dt) * (1.0 / math.sqrt(hd))).reshape(B, S, KVH, G, hd).permute(0, 2, 3, 1, 4)
+    kt = k.to(dt).permute(0, 2, 3, 1)[:, :, None].expand(B, KVH, G, hd, S)
+    vg = v.to(dt).permute(0, 2, 1, 3)[:, :, None].expand(B, KVH, G, S, hd)
+    s = qg @ kt if passes is None else _tf32_product(qg, kt, passes)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    i = torch.arange(S)
+    mask = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window > 0:
+        mask &= i[None, :] > i[:, None] - window
+    s = s.masked_fill(~mask, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))  # masked p are exactly 0
+    pv = p @ vg if passes is None else _tf32_product(p, vg, passes)
+    o = pv / p.sum(-1, keepdim=True)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_tf32_split_holds_float32_tolerance(case):
+    """Three TF32 passes stay within the reference's 2e-5 of float64
+    attention, steep scores included; one pass misses it on steep scores,
+    which is why the float32 kernel issues three."""
+    B, S, H, KVH, hd, window, softcap, causal, amp = case
+    q, k, v = (torch.from_numpy(a) for a in _inputs(B, S, S, H, KVH, hd, seed=S + hd))
+    q, k = q * amp, k * amp
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = _attention(q, k, v, **kw).numpy()
+    got = _attention(q, k, v, passes=3, **kw).double().numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    # the plain version on float64 tensors is the same exact answer
+    np.testing.assert_allclose(
+        FA.flash_attention_plain(q.double(), k.double(), v.double(), **kw).numpy(),
+        want, atol=1e-12, rtol=1e-12)
+    if amp > 1:
+        one = _attention(q, k, v, passes=1, **kw).double().numpy()
+        assert not np.allclose(one, want, atol=2e-5, rtol=2e-5)
+
+
+def test_public_wrapper_refuses_float64_the_plain_version_takes():
+    q = torch.zeros(1, 8, 2, 16, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q, q)
+    assert FA.flash_attention_plain(q, q, q).dtype == torch.float64
+
+
+def test_variant_builds_are_keyed_apart():
+    """A planted fault's build (a ``-D`` flag, one source) never shares a
+    library path with the real build: its hash is its own."""
+    from repro_torch.kernels import _build
+
+    real = _build.library_path()
+    fault = _build.library_path(["-DREPRO_FLASH_F32_ONE_PASS"], ["flash_attention"])
+    assert fault != real and fault.parent == real.parent == _build.BUILD_DIR
+    assert [p.name for p in _build.sources(["flash_attention"])] == ["flash_attention.cu"]
+    assert _build.library_path([], ["flash_attention"]) != real
+    assert _build.library_path(["-DX"]) != real
