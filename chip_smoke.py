@@ -25,11 +25,22 @@ the tensor cores), against the plain blocked-attention route; ``ssd_forward(use_
 full-width mamba2-2.7b layer through ``ssd_scan`` (cell
 ``ssd_layer_mamba2_2_7b_s4096``) against the chunked form.
 
+The control plane -- ``SchedulerService`` over the ``hetero`` preset of
+``repro_torch.cli`` (cell ``daemon_hetero``) -- runs in process against
+``engine="vector"`` (the same schedules and journal bytes), recovers on
+the card from its journal cut short, and runs as a ``python -m
+repro_torch.cli daemon`` subprocess on the card that is killed with
+SIGKILL and booted again on its journal.  MoE serving
+(``serve_qwen2_moe_a2_7b_p2048``) runs phase 8's checks on
+qwen2-moe-a2.7b at full width (float32 at 6 of 24 layers) and holds one
+MoE layer on the card to the CPU.
+
 Phases: 1 device and build (and the tensor-core instructions in the SASS
 of the flash kernels and the bf16 ssd kernels; a planted fault's build,
 the float32 flash kernel with one TF32 pass, beside it), 2 kernels vs
 plain versions, 3 paper node, 4
-elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer.
+elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer,
+10 the scheduler daemon, 11 MoE serving.
 ``score_reduce`` carries the idle-node guard in its one launch
 (``guard=``); phases 3-5 print its guarded calls, and phase 6 the
 guarded segments of the packed launches, one per staged burst.
@@ -87,6 +98,7 @@ FLASH_CASES = (
     # every head dim of the kernels, ragged S, non-causal and windowed
     (1, 300, 4, 2, 96, 0, 25.0, False), (2, 333, 6, 2, 96, 100, 0.0, True),
     (1, 300, 4, 2, 16, 0, 25.0, False), (1, 300, 4, 2, 256, 0, 0.0, False),
+    (4, 2048, 16, 16, 128, 0, 0.0, True),  # qwen2-moe-a2.7b prefill (phase 11)
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference tests'
 # steep scores, as trained weights give them: q and k x FLASH_STEEP (score
@@ -126,6 +138,23 @@ SERVE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # prompts and decode tokens.
 SERVE_SPREAD_FACTOR = 1.5
 SSD_ARCH, SSD_B, SSD_S = "mamba2-2.7b", 2, 4096
+# phase 10: the scheduler daemon on the hetero preset (one H100, A100 and
+# V100 node behind the energy-aware dispatcher), driven in process and as
+# a `python -m repro_torch.cli daemon` subprocess on the card
+DAEMON_PRESET, DAEMON_SUBMITS, DAEMON_OFFSETS, DAEMON_BOOT_S = "hetero", 200, 8, 240.0
+# the journal workload of tests/test_service.py: every record kind
+DAEMON_OPS = (
+    ("submit", "j0", "bert", 10.0), ("submit", "j1", "lbm", 10.0),
+    ("submit", "j2", "resnet50", 40.0), ("advance", 60.0),
+    ("submit", "j3", "gpt2", 90.0), ("submit", "j4", "MonteCarlo", 90.0),
+    ("cancel", "j4"), ("advance", 800.0), ("submit", "j5", "vgg16", 1200.0),
+    ("drain",),
+)
+# phase 11: qwen2-moe-a2.7b at full width; float32 at 6 of its 24 layers
+# (57 GB of float32 weights at full depth would leave little room)
+MOE_ARCH, MOE_F32_LAYERS = "qwen2-moe-a2.7b", 6
+MOE_FLASH = FLASH_CASES[-1]  # its prefill: B 4, S 2048, 16 over 16 heads, hd 128
+MOE_LAYER_S, MOE_LAYER_TOL = 256, 1e-4  # one MoE layer on the card vs the CPU
 
 
 def check(cond, msg: str) -> None:
@@ -1515,10 +1544,11 @@ def flash_ops(B, S, H, hd, window, causal):
     return pairs * B * H * 4 * hd
 
 
-def time_flash(device, dtype="bfloat16"):
-    """``flash_attention`` at hymba-1.5b's prefill shape: the kernel by CUDA
-    events, its plain version, and ``scaled_dot_product_attention`` with
-    ``enable_gqa`` and the window as a boolean mask as the library
+def time_flash(device, dtype="bfloat16", case=FLASH_PATH):
+    """``flash_attention`` at ``case`` (hymba-1.5b's prefill shape unless
+    given): the kernel by CUDA events, its plain version, and
+    ``scaled_dot_product_attention`` with ``enable_gqa`` and the window as
+    a boolean mask (without a window: ``is_causal``) as the library
     yardstick, in turns.  bf16 (the serving type) runs the wgmma kernel,
     float32 the three-pass TF32 kernel (its pre-pass included).  The bound
     counts the work the function needs, once, at the card's fastest rate
@@ -1531,17 +1561,20 @@ def time_flash(device, dtype="bfloat16"):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
 
-    case = FLASH_PATH
     B, S, H, KVH, hd, window, softcap, causal = case
+    check(softcap == 0.0, f"time_flash: SDPA has no softcap, case {case}")
     q, k, v = flash_inputs(case, getattr(torch, dtype), device, seed=99)
     kw = dict(causal=causal, window=window, softcap=softcap)
     qp = torch.arange(S, device=device)
-    mask = (qp[None, :] <= qp[:, None]) & (qp[None, :] > qp[:, None] - window)
+    if window:
+        mask = (qp[None, :] <= qp[:, None]) & (qp[None, :] > qp[:, None] - window)
+        sdpa_kw = dict(attn_mask=mask)
+    else:
+        sdpa_kw = dict(is_causal=causal)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw)
 
     def kern():
         return FA.flash_attention(q, k, v, **kw)
@@ -1663,18 +1696,72 @@ def pad_cache(cache, cap):
             for k, v in cache.items()}
 
 
-def layerwise_rel_err(kern, plain, params, batch):
+def moe_block(model, bp, h, positions, is_global, routing=None):
+    """One attention + MoE layer of ``model`` (qwen2-moe's block), as
+    ``Model._block_prefill`` computes it, with the MoE routing (experts,
+    buffer positions, kept slots, weights) taken from ``routing`` when
+    given.  Returns (the layer's output, the routing used, its (k, v)
+    cache entries)."""
+    from repro_torch.models import moe as PM
+    from repro_torch.models.common import rms_norm
+
+    cfg = model.cfg
+    B, S, _ = h.shape
+    q, k, v = model._qkv(bp["attn"], h, positions)
+    o = model._self_attention(q, k, v, is_global=is_global)
+    h = h + o.reshape(B, S, cfg.q_dim) @ bp["attn"]["wo"]
+    x = rms_norm(h, bp["moe_ln"], cfg.norm_eps)
+    r = PM.route(bp["moe"], x, cfg, model.rt.capacity_factor) if routing is None else routing
+    flat_e, pos_clip, keep, flat_w, C = r
+    eo = PM.expert_ffn(bp["moe"]["experts"],
+                       PM.dispatch(x, flat_e, pos_clip, cfg.num_experts, C))
+    return h + PM.residual_ffn(bp["moe"], x, PM.combine(eo, flat_e, pos_clip, keep,
+                                                        flat_w, S)), r, (k, v)
+
+
+def matched_prefill(kern, plain, params, batch, want_logits):
+    """The kernel route's prefill of an MoE model with every MoE layer
+    taking the routing the plain route's prefill takes there (its own
+    attention, norms and expert products): last-position logits and the
+    cache.  The plain route run beside it must give ``want_logits``
+    exactly."""
+    import torch
+    from repro_torch.models.model import _tmap
+
+    cfg = plain.cfg
+    hp = hk = plain._embed(params, batch)
+    positions = torch.arange(hp.shape[1], device=hp.device)[None, :]
+    ks, vs = [], []
+    for li in range(cfg.num_layers):
+        bp = _tmap(lambda x: x[li], params["blocks"])
+        g = cfg.layer_is_global(li % plain.period)
+        hp, rp, _ = moe_block(plain, bp, hp, positions, g)
+        hk, _, (k, v) = moe_block(kern, bp, hk, positions, g, routing=rp)
+        ks.append(k)
+        vs.append(v)
+    check(torch.equal(plain._head(params, hp[:, -1:, :]), want_logits),
+          "matched_prefill: the plain route differs from its prefill")
+    return kern._head(params, hk[:, -1:, :]), {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def layerwise_rel_err(kern, plain, params, batch, extra=None):
     """The largest rel. errors of one layer's attention output and of its
     output, the kernel route's against the plain route's, with every layer
     of both fed the plain route's input to it (so differences cannot
-    compound across layers)."""
+    compound across layers).  In an MoE model a bf16 difference in the
+    attention output can move a token across its top-k boundary, which
+    changes that token's output by the size of an expert's: so the
+    layer's output is compared with the kernel route's MoE taking the
+    plain route's routing, and ``extra`` (a dict) gets the error with the
+    kernel route's own routing and the tokens whose experts or drops
+    differ (``routing_flips`` per layer, of ``tokens``)."""
     import torch
     from repro_torch.models.model import _tmap
 
     cfg = plain.cfg
     h = plain._embed(params, batch)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    attn, out = 0.0, 0.0
+    attn, out, own, flips = 0.0, 0.0, 0.0, []
     for li in range(cfg.num_layers):
         bp = _tmap(lambda x: x[li], params["blocks"])
         g = cfg.layer_is_global(li % plain.period)
@@ -1682,22 +1769,50 @@ def layerwise_rel_err(kern, plain, params, batch):
         attn = max(attn, rel_err(kern._self_attention(q, k, v, is_global=g),
                                  plain._self_attention(q, k, v, is_global=g)))
         del q, k, v
-        hk, _ = kern._block_prefill(bp, h, is_global=g, positions=positions)
-        h, _ = plain._block_prefill(bp, h, is_global=g, positions=positions)
+        if cfg.uses_moe:
+            hp, rp, _ = moe_block(plain, bp, h, positions, g)
+            if li == 0:  # the helper is the model's layer
+                check(torch.equal(hp, plain._block_prefill(bp, h, is_global=g,
+                                                           positions=positions)[0]),
+                      "moe_block differs from Model._block_prefill")
+            hk, _, _ = moe_block(kern, bp, h, positions, g, routing=rp)
+            hk_own, rk, _ = moe_block(kern, bp, h, positions, g)
+            own = max(own, rel_err(hk_own, hp))
+            B, S = h.shape[:2]
+            differ = ((rk[0] != rp[0]) | (rk[2] != rp[2])).reshape(B, S, -1).any(-1)
+            flips.append(int(differ.sum()))
+            del hk_own, rk, rp
+            h = hp
+        else:
+            hk, _ = kern._block_prefill(bp, h, is_global=g, positions=positions)
+            h, _ = plain._block_prefill(bp, h, is_global=g, positions=positions)
         out = max(out, rel_err(hk, h))
+    if extra is not None and cfg.uses_moe:
+        extra.update(layer_out_rel_err_own_routing=own, routing_flips=flips,
+                     tokens=int(h.shape[0] * h.shape[1]))
     return attn, out
 
 
-def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
-    """Cell ``serve_hymba_1_5b_p2048``, in bf16 and float32: seeded weights
+def window_ignored(cfg, rt):
+    """Phase 8's planted fault: the kernel route with the window ignored."""
+    from repro_torch.models import build_model
+
+    return build_model(cfg.replace(sliding_window=0), rt)
+
+
+def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS,
+                cap=SERVE_CAP, layers=None, fault=window_ignored):
+    """Cell ``serve_hymba_1_5b_p2048`` (``arch`` and the other arguments
+    name another cell), in bf16 and float32: seeded weights
     made on the card, prefill through ``attn_impl="pallas"`` (the kernel)
     and ``"blocked"`` (the plain route) on the same weights and prompts,
     then ``steps`` greedy decode steps of the plain run, with the kernel
     run fed the same tokens; in bf16 the reference's other plain route
     (``"dense"``) runs beside them and sets the end-to-end bound.  Then
     each layer of both routes on the plain route's input to it, and the
-    same for a planted fault (the kernel route with the window ignored),
-    which the per-layer and end-to-end checks must catch.  Launches are counted on the
+    same for a planted fault (``fault(cfg, rt)``: by default the kernel
+    route with the window ignored), which the per-layer and end-to-end
+    checks must catch.  ``layers`` maps a dtype to a cut depth.  Launches are counted on the
     prefills through the user entry points (warm-up and timed; the counts
     are set to 0 before the phase).  Returns (launches by type, metrics by
     type)."""
@@ -1707,12 +1822,14 @@ def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
     from repro_torch.models import Runtime, build_model
     from repro_torch.train import make_decode_step, make_prefill
 
-    base = get_config(SERVE_ARCH)
-    L = base.num_layers
+    base = get_config(arch)
     out, launches = {}, {}
     FA.reset_stats()
     for dtype, tol in SERVE_TOL.items():
         cfg = base.replace(dtype=dtype)
+        if layers and layers.get(dtype):
+            cfg = cfg.replace(num_layers=layers[dtype])
+        L = cfg.num_layers
         kern = build_model(cfg, Runtime(attn_impl="pallas", remat="none"))
         plain = build_model(cfg, Runtime(attn_impl="blocked", remat="none"))
         routes = {"k": kern, "p": plain}
@@ -1723,7 +1840,7 @@ def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
         batch = {"tokens": serve_tokens(cfg, device, B, P)}
         prefill = {r: make_prefill(mdl) for r, mdl in routes.items()}
         step = {r: make_decode_step(mdl) for r, mdl in routes.items()}
-        m = {}
+        m = {"layers": L}
         with torch.inference_mode():
             n0 = FA.STATS["flash_attention"]
             prefill["k"](params, batch)  # warm-up: cuBLAS handles, first launches
@@ -1752,6 +1869,19 @@ def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
                   f"serve {dtype}: prefill logits not finite of shape (B, 1, V)")
             # rel. errors against the plain route: [prefill, step 0, ...]
             errs = {r: [rel_err(logits[r], logits["p"])] for r in routes.keys() - {"p"}}
+            if cfg.uses_moe:
+                # a token whose top-k sits on a boundary flips its experts
+                # on an ulp upstream; the kernel route with the plain
+                # route's routing separates the kernel's error from that
+                mlog, mcache = matched_prefill(kern, plain, params, batch, logits["p"])
+                m["prefill_rel_err_matched_routing"] = rel_err(mlog, logits["p"])
+                m["prefill_rel_err_own_routing"] = errs["k"][0]
+                if "d" not in routes:  # a fixed bound: hold the kernel's own error
+                    errs["k"][0] = m["prefill_rel_err_matched_routing"]
+                    caches["k"] = mcache
+                    m["decode_from"] = "the matched-routing prefill's cache"
+                del mlog, mcache
+                n2 = FA.STATS["flash_attention"]  # a comparison's launches
             caches = {r: pad_cache(c, cap) for r, c in caches.items()}
             tok = logits["p"][:, -1].argmax(-1)[:, None]
             step_s, agree = [], 0
@@ -1785,17 +1915,19 @@ def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
             check(m["decode_max_rel_err"] < lim[1],
                   f"serve {dtype}: decode rel err {m['decode_max_rel_err']} >= {lim[1]}")
             m["layer_attn_rel_err"], m["layer_out_rel_err"] = layerwise_rel_err(
-                kern, plain, params, batch)
+                kern, plain, params, batch, extra=m)
             check(max(m["layer_attn_rel_err"], m["layer_out_rel_err"]) < tol,
                   f"serve {dtype}: a layer's rel errs (attention, output) "
                   f"{m['layer_attn_rel_err']}, {m['layer_out_rel_err']} >= {tol}")
-            # planted fault: the kernel route with the window ignored
-            fault = build_model(cfg.replace(sliding_window=0), kern.rt)
-            m["fault_layer_attn_out_rel_err"] = layerwise_rel_err(fault, plain, params, batch)
+            # planted fault: by default the kernel route with the window ignored
+            fault_model = fault(cfg, kern.rt)
+            m["fault_layer_attn_out_rel_err"] = layerwise_rel_err(
+                fault_model, plain, params, batch)
             check(max(m["fault_layer_attn_out_rel_err"]) >= tol,
                   f"serve {dtype}: the per-layer check missed the planted fault: "
                   f"{m['fault_layer_attn_out_rel_err']} < {tol}")
-            m["fault_prefill_rel_err"] = rel_err(fault.prefill(params, batch)[0], logits["p"])
+            m["fault_prefill_rel_err"] = rel_err(fault_model.prefill(params, batch)[0],
+                                                 logits["p"])
             check(m["fault_prefill_rel_err"] >= lim[0],
                   f"serve {dtype}: the end-to-end check missed the planted fault: "
                   f"{m['fault_prefill_rel_err']} < {lim[0]}")
@@ -1825,8 +1957,10 @@ def phase_serve(device, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS, cap=SERVE_CAP):
                 top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
                 m["top_device_kernels"] = [(k[:50], c, round(us, 1)) for k, (c, us) in top]
         out[dtype] = m
-        print(f"  serve_{SERVE_ARCH} {dtype}: " + " ".join(f"{k}={v!r}" for k, v in m.items()))
-        del params
+        print(f"  serve_{arch} {dtype}: " + " ".join(f"{k}={v!r}" for k, v in m.items()))
+        del params, prefill, step, kern, plain, routes, fault_model, logits
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     return launches, out
 
 
@@ -1875,6 +2009,370 @@ def phase_ssd_layer(device, B=SSD_B, S=SSD_S):
                           layer_ms_chunked=plain_ms)
         print(f"  ssd_layer_{SSD_ARCH} B={B} S={S} {dtype}: "
               + " ".join(f"{k}={v!r}" for k, v in out[dtype].items()))
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the scheduler daemon (control plane) on the card
+# ---------------------------------------------------------------------------
+
+
+def daemon_stream(apps, n=DAEMON_SUBMITS, seed=SEED):
+    """A seeded online workload of ``n`` submits over ``apps``: groups of
+    3-9 submits at one instant an hour or two apart (same-instant bursts
+    that reach several nodes), half of them followed by an advance 10 s
+    on, then a drain."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ops, t, i = [], 0.0, 0
+    while i < n:
+        t += float(rng.choice([3600.0, 7200.0]))
+        for _ in range(min(int(rng.choice([3, 6, 9])), n - i)):
+            ops.append(("submit", f"s{i}", str(rng.choice(apps)), t))
+            i += 1
+        if rng.random() < 0.5:
+            ops.append(("advance", t + 10.0))
+    ops.append(("drain",))
+    return ops
+
+
+def apply_ops(svc, ops):
+    for op in ops:
+        if op[0] == "submit":
+            svc.submit(op[1], op[2], op[3])
+        elif op[0] == "cancel":
+            svc.cancel(op[1])
+        elif op[0] == "advance":
+            svc.advance(op[1])
+        else:
+            svc.advance(None)
+
+
+def op_request(op):
+    """One of ``apply_ops``' ops as a request of the wire protocol."""
+    if op[0] == "submit":
+        return {"op": "submit", "name": op[1], "app": op[2], "t": op[3]}
+    if op[0] == "cancel":
+        return {"op": "cancel", "name": op[1]}
+    if op[0] == "advance":
+        return {"op": "advance", "until": op[1]}
+    return {"op": "drain"}
+
+
+def result_key(res):
+    """The fingerprint the service tests compare: the keyed records,
+    makespan and total energy of a ``result`` response."""
+    check(res.get("ok"), f"daemon result not ok: {res}")
+    return (tuple(tuple(r) for r in sorted(res["records"])), res["makespan"],
+            res["total_energy"])
+
+
+def short_path(p):
+    """``p`` as a string short enough for a unix socket (108 bytes): the
+    path relative to the working directory when the absolute one is long."""
+    import os
+
+    s = str(p)
+    return s if len(s) < 100 else os.path.relpath(s)
+
+
+def boot_daemon(sock, jnl, log, extra):
+    """Start ``python -m repro_torch.cli daemon`` on the card; returns the
+    process once it answers ``ping`` (CUDA context and the kernel
+    library's load included in the deadline)."""
+    import os
+    from repro_torch.core.service import request
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.cli", "daemon", "--socket", sock,
+         "--journal", jnl, "--preset", DAEMON_PRESET, *extra],
+        env=env, stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < DAEMON_BOOT_S:
+        if proc.poll() is not None:
+            raise RuntimeError(f"daemon exited on boot with {proc.returncode}")
+        try:
+            if request(sock, {"op": "ping"}, timeout=10.0).get("pong"):
+                return proc, time.perf_counter() - t0
+        except (OSError, ValueError):
+            time.sleep(0.2)
+    proc.kill()
+    proc.wait(timeout=30)
+    raise RuntimeError(f"daemon never answered ping in {DAEMON_BOOT_S} s")
+
+
+def pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def phase_daemon(device, workdir):
+    """Cell ``daemon_hetero``.  (a) ``SchedulerService`` over
+    ``make_backend_factory("hetero", device=...)`` (node policies
+    ``EcoSched(engine="torch")``) on the service tests' ops, on a seeded
+    stream of ``DAEMON_SUBMITS`` submits, and on the stream with
+    ``elastic=True, freq_levels=3``, each beside the same ops with
+    ``engine="vector"``: equal fingerprints and byte-identical journals.
+    The kernels' counts are set to 0 just before each torch run and read
+    just after.  (b) The elastic leg's journal cut at ``DAEMON_OFFSETS``
+    seeded offsets recovers on the card to the same fingerprint.  (c) The
+    real daemon, ``python -m repro_torch.cli daemon --preset hetero
+    --elastic --freq-levels 3``, on the card: the stream through its
+    socket, SIGKILL halfway, a second boot on the same journal, the rest
+    of the stream and a drain, and the result must equal (a)'s.  (d) µs
+    per request through the socket.  Returns the launches by kernel."""
+    import os
+    import signal
+
+    import numpy as np
+    from repro_torch.cli import make_backend_factory
+    from repro_torch.core import SchedulerService
+    from repro_torch.core.service import request
+    from repro_torch.kernels import score_reduce as K
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    apps = make_backend_factory(DAEMON_PRESET, engine="vector")().run.apps
+    stream = daemon_stream(apps)
+    elastic = dict(elastic=True, freq_levels=3)
+    legs = (("ops", {}, DAEMON_OPS), ("stream", {}, stream),
+            ("stream_elastic_f3", elastic, stream))
+    launches = {k: 0 for k in KERNELS}
+    golden = {}
+    for leg, kw, ops in legs:
+        got = {}
+        for engine in ("torch", "vector"):
+            jnl = workdir / f"{leg}-{engine}.jnl"
+            jnl.unlink(missing_ok=True)
+            factory = make_backend_factory(DAEMON_PRESET, engine=engine, device=device,
+                                           **kw)
+            if engine == "torch":
+                K.reset_stats()
+            t0 = time.perf_counter()
+            svc = SchedulerService(factory, journal_path=str(jnl))
+            apply_ops(svc, ops)
+            sync(device)
+            wall = time.perf_counter() - t0
+            if engine == "torch":
+                kstats = read_stats()
+            got[engine] = (result_key(svc.result()), svc.stats(), wall, jnl.read_bytes())
+            svc.close()
+        (fp_t, st, wall_t, blob_t), (fp_v, _, wall_v, blob_v) = got["torch"], got["vector"]
+        check(fp_t == fp_v, f"daemon {leg}: torch schedule differs from vector")
+        check(blob_t == blob_v, f"daemon {leg}: the torch run's journal differs from vector's")
+        check(st["replay_divergences"] == 0 and fp_t[1] > 0 and fp_t[2] > 0,
+              f"daemon {leg}: bad stats {st}")
+        for k in KERNELS:
+            launches[k] += kstats[k]["launches"]
+        golden[leg] = fp_t
+        print(f"  daemon {leg}{' ' + str(kw) if kw else ''}: ops={len(ops)} "
+              f"records={len(fp_t[0])} makespan={fp_t[1]!r} energy={fp_t[2]!r} "
+              f"counts={st['counts']} rejected={st['rejected']} "
+              f"journal_bytes={len(blob_t)} wall_s torch={wall_t!r} vector={wall_v!r} "
+              f"launches={ {k: v['launches'] for k, v in kstats.items()} } "
+              f"guarded={ {k: v['guarded'] for k, v in kstats.items()} }")
+    for k in KERNELS:
+        check(launches[k] > 0, f"daemon: {k} was never launched")
+
+    # (b) recovery on the card from the elastic leg's journal cut short
+    factory = make_backend_factory(DAEMON_PRESET, device=device, **elastic)
+    blob = got["torch"][3]
+    head = blob.index(b"\n") + 1
+    rng = np.random.default_rng(SEED)
+    offsets = sorted({int(o) for o in rng.integers(head, len(blob), size=DAEMON_OFFSETS)})
+    replay_s = []
+    for off in offsets:
+        jnl = workdir / f"crash{off}.jnl"
+        jnl.write_bytes(blob[:off])
+        t0 = time.perf_counter()
+        svc = SchedulerService(factory, journal_path=str(jnl))
+        sync(device)
+        replay_s.append(time.perf_counter() - t0)
+        check(svc.replay_divergences == 0, f"daemon recovery at {off}: divergences")
+        apply_ops(svc, stream)
+        check(result_key(svc.result()) == golden["stream_elastic_f3"],
+              f"daemon recovery at offset {off}: schedule differs from the golden")
+        svc.close()
+        jnl.unlink()
+    print(f"  daemon recovery on {device}: offsets={offsets} of {len(blob)} bytes "
+          f"replay_s={replay_s!r}")
+
+    # (c) the real daemon: boot, half the stream, SIGKILL, boot, the rest
+    sock = short_path(workdir / "d.sock")
+    jnl = short_path(workdir / "d.jnl")
+    for p in (workdir / "d.sock", workdir / "d.jnl"):
+        p.unlink(missing_ok=True)
+    extra = ["--elastic", "--freq-levels", "3"]
+    if device.type != "cuda":  # the daemon runs on the card unless asked
+        extra += ["--device", device.type]
+    reqs = [op_request(op) for op in stream[:-1]]
+    half = len(reqs) // 2
+    us = {"submit": [], "advance": []}
+    proc = None
+    with open(workdir / "daemon.log", "w") as log:
+        try:
+            proc, boot1 = boot_daemon(sock, jnl, log, extra)
+            for i, req in enumerate(reqs):
+                if i == half:  # no warning, no flush window
+                    os.kill(proc.pid, signal.SIGKILL)
+                    proc.wait(timeout=30)
+                    proc, boot2 = boot_daemon(sock, jnl, log, extra)
+                    stats = request(sock, {"op": "stats"})
+                    check(stats["replay_divergences"] == 0,
+                          f"daemon: divergences after the SIGKILL: {stats}")
+                t0 = time.perf_counter()
+                resp = request(sock, req)
+                us[req["op"]].append((time.perf_counter() - t0) * 1e6)
+                check(resp.get("ok") or req["op"] == "submit",
+                      f"daemon: {req} answered {resp}")
+            check(request(sock, {"op": "drain"}).get("ok"), "daemon: drain failed")
+            res = request(sock, {"op": "result"})
+            check(result_key(res) == golden["stream_elastic_f3"],
+                  "daemon: the SIGKILLed daemon's schedule differs from the golden")
+            stats = request(sock, {"op": "stats"})
+            check(stats["replay_divergences"] == 0, f"daemon: divergences {stats}")
+            check(request(sock, {"op": "shutdown"}).get("shutdown"), "daemon: no shutdown")
+            check(proc.wait(timeout=60) == 0, "daemon: non-zero exit after shutdown")
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    print(f"  daemon subprocess --preset {DAEMON_PRESET} {' '.join(extra)}: "
+          f"boot_s={boot1!r} reboot_after_sigkill_s={boot2!r} requests={len(reqs)} "
+          f"killed_after={half} result equals (a)'s golden, replay_divergences=0")
+    for op, xs in us.items():
+        print(f"  daemon socket {op}: n={len(xs)} p50_us={pct(xs, 0.5)!r} "
+              f"p99_us={pct(xs, 0.99)!r}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: MoE serving, qwen2-moe-a2.7b at full width
+# ---------------------------------------------------------------------------
+
+
+def causal_ignored(cfg, rt):
+    """Phase 11's planted fault: the kernel route with ``causal`` ignored
+    (the model has no window to ignore)."""
+    from repro_torch.models.attention import attention
+    from repro_torch.models.model import Model
+
+    class NonCausal(Model):
+        def _self_attention(self, q, k, v, *, is_global):
+            return attention(q, k, v, causal=False, softcap=self.cfg.attn_logit_softcap,
+                             impl=self.rt.attn_impl, q_chunk=self.cfg.attn_q_chunk,
+                             kv_chunk=self.cfg.attn_kv_chunk)
+
+    return NonCausal(cfg, rt)
+
+
+def moe_unnormalised(p, x, cfg):
+    """A planted fault built here, not in the package: ``moe_apply`` with
+    the top-k routing weights left as the router's probabilities (not
+    renormalised to sum to 1 over a token's k experts)."""
+    from repro_torch.models import moe as PM
+
+    B, S, _ = x.shape
+    flat_e, pos_clip, keep, _, C = PM.route(p, x, cfg)
+    raw = PM.top_k(PM.router_probs(p, x), cfg.num_experts_per_tok)[0]
+    eo = PM.expert_ffn(p["experts"], PM.dispatch(x, flat_e, pos_clip, cfg.num_experts, C))
+    out = PM.combine(eo, flat_e, pos_clip, keep, raw.reshape(B, -1), S)
+    return PM.residual_ffn(p, x, out)
+
+
+def phase_moe_layer(device):
+    """One full-width qwen2-moe MoE layer (float32, B 1 x S ``MOE_LAYER_S``)
+    on the card and on the CPU from the same seeded weights: the experts
+    each slot goes to, the capacity drops and the output must agree
+    (rel. max error < ``MOE_LAYER_TOL``), and the planted fault (routing
+    weights not renormalised) must not.  Then the device time of each
+    piece of a bf16 layer at the prefill shape (B 4 x S 2048) by CUDA
+    events: routing, dispatch, the expert einsums, combine, the shared
+    experts; and the profiler's device kernels of one layer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as PM
+
+    cfg = get_config(MOE_ARCH).replace(dtype="float32")
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=cpu).manual_seed(SEED)
+    p_cpu = PM.moe_init(gen, cfg, torch.float32)
+    x_cpu = torch.randn((1, MOE_LAYER_S, cfg.d_model), generator=gen)
+    p_dev = {k: ({kk: vv.to(device) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(device)) for k, v in p_cpu.items()}
+    x_dev = x_cpu.to(device)
+    m = {}
+    with torch.inference_mode():
+        want = PM.moe_apply(p_cpu, x_cpu, cfg)
+        got = PM.moe_apply(p_dev, x_dev, cfg)
+        r_cpu, r_dev = PM.route(p_cpu, x_cpu, cfg), PM.route(p_dev, x_dev, cfg)
+        check(torch.equal(r_cpu[0], r_dev[0].cpu()) and torch.equal(r_cpu[2], r_dev[2].cpu()),
+              "moe layer: the card routes or drops other slots than the CPU")
+        m["dropped_slots"] = int((~r_cpu[2]).sum())
+        m["capacity"] = r_cpu[4]
+        m["rel_err_vs_cpu"] = rel_err(got.cpu(), want)
+        check(m["rel_err_vs_cpu"] < MOE_LAYER_TOL and bool(torch.isfinite(got).all()),
+              f"moe layer: card vs CPU rel err {m['rel_err_vs_cpu']} >= {MOE_LAYER_TOL}")
+        m["fault_rel_err_vs_cpu"] = rel_err(moe_unnormalised(p_dev, x_dev, cfg).cpu(), want)
+        check(m["fault_rel_err_vs_cpu"] >= MOE_LAYER_TOL,
+              f"moe layer: the check missed the planted fault: "
+              f"{m['fault_rel_err_vs_cpu']} < {MOE_LAYER_TOL}")
+    del p_cpu, p_dev
+    print(f"  moe layer {MOE_ARCH} float32 B=1 S={MOE_LAYER_S}: "
+          + " ".join(f"{k}={v!r}" for k, v in m.items()))
+    if device.type != "cuda":
+        return m
+
+    # where one bf16 layer's time goes at the prefill shape
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p = PM.moe_init(gen, cfg, torch.bfloat16)
+    x = torch.randn((SERVE_B, SERVE_P, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    with torch.inference_mode():
+        flat_e, pos_clip, keep, flat_w, C = PM.route(p, x, cfg)
+        buf = PM.dispatch(x, flat_e, pos_clip, cfg.num_experts, C)
+        eo = PM.expert_ffn(p["experts"], buf)
+        out = PM.combine(eo, flat_e, pos_clip, keep, flat_w, SERVE_P)
+        pieces = {
+            "route": lambda: PM.route(p, x, cfg),
+            "dispatch": lambda: PM.dispatch(x, flat_e, pos_clip, cfg.num_experts, C),
+            "expert_einsums": lambda: PM.expert_ffn(p["experts"], buf),
+            "combine": lambda: PM.combine(eo, flat_e, pos_clip, keep, flat_w, SERVE_P),
+            "shared_experts": lambda: PM.residual_ffn(p, x, out),
+            "moe_apply": lambda: PM.moe_apply(p, x, cfg),
+        }
+        split = {k: cuda_ms(fn, 10) for k, fn in pieces.items()}
+        wall, avgs = profiled(pieces["moe_apply"])
+    dev = device_kernels(avgs)
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]
+    print(f"  moe layer {MOE_ARCH} bf16 B={SERVE_B} S={SERVE_P} capacity={C} "
+          f"dropped_slots={int((~keep).sum())} ms_by_events="
+          + " ".join(f"{k}={v!r}" for k, v in split.items()))
+    print(f"  moe layer bf16 under the profiler: wall_s={wall!r} device_busy_us="
+          f"{sum(us for _, us in dev.values())!r} top={[(k[:50], c, round(us, 1)) for k, (c, us) in top]}")
+    del p, x, buf, eo, out
+    torch.cuda.empty_cache()
+    m["split_ms"] = split
+    return m
+
+
+def phase_serve_moe(device):
+    """Cell ``serve_qwen2_moe_a2_7b_p2048``: phase 8's serving path on
+    qwen2-moe-a2.7b at full width in bf16 (float32 at ``MOE_F32_LAYERS``
+    layers), the planted fault the kernel route with ``causal`` ignored;
+    ``flash_attention`` at its prefill shape by events beside SDPA and the
+    bound (its device µs a launch is phase 8's profile of the bf16 route,
+    ``flash_device_us``); the MoE layer on the card against the CPU."""
+    launches, out = phase_serve(device, arch=MOE_ARCH,
+                                layers={"float32": MOE_F32_LAYERS}, fault=causal_ignored)
+    t = time_flash(device, "bfloat16", case=MOE_FLASH) if device.type == "cuda" else {}
+    if t:  # its device µs a launch is the bf16 serving profile's flash_device_us
+        print(f"  flash_attention at {t['shape']} bfloat16: " + " ".join(
+            f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
+    out["moe_layer"] = phase_moe_layer(device)
+    out["flash"] = t
     return launches, out
 
 
@@ -2005,6 +2503,17 @@ def main() -> int:
     lap("9")
     print(f"  serving and SSD launches: flash_attention={flash_launches} "
           f"ssd_scan={ssd_launches}")
+    print("== phase 10: control plane, daemon_hetero")
+    daemon_launches = phase_daemon(device, ROOT / "build" / "daemon")
+    print(f"  daemon launches: {daemon_launches}")
+    lap("10")
+    print("== phase 11: MoE serving, serve_qwen2_moe_a2_7b_p2048")
+    torch.cuda.empty_cache()
+    moe_launches, _ = phase_serve_moe(device)
+    for dtype, n in moe_launches.items():
+        check(n > 0, f"flash_attention ({dtype}) was never launched on the MoE serving path")
+    print(f"  MoE serving launches: flash_attention={moe_launches}")
+    lap("11")
     for name, src, line, n in (
             ("flash_attention", "flash_attention.cu", "flash_attention.py:127",
              flash_launches["bfloat16"]),

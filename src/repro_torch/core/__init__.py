@@ -1,7 +1,7 @@
 """EcoSched core in PyTorch: the single-node decision path and the fleet.
 
-Twin of ``repro.core`` for the modules ported so far (the control plane,
-``journal``/``service``, and the TPU-only ``RooflinePerfModel`` are not).
+Twin of ``repro.core`` for the modules ported so far (the TPU-only
+``RooflinePerfModel`` is not).
 
 Phase I:  perfmodel (ProfiledPerfModel / OraclePerfModel), calibration,
           forecast (RefinedPerfModel posteriors, ForecastPlane)
@@ -12,6 +12,9 @@ Substrate: placement, events, faults, simulator (event-driven energy
 accounting), cluster (dispatchers, fleet index, ``Cluster``/``ClusterRun``
 with cross-node kernel staging), arrivals, baselines, oracle, metrics;
 carry (plain-data constructors).
+Control plane: journal (append-only JSONL, the reference's format) and
+service (``SchedulerService``: lifecycle state machine, admission,
+journaled crash recovery, the unix-socket daemon behind ``repro_torch.cli``).
 """
 from repro_torch.core.arrivals import (
     Arrival,
@@ -55,6 +58,7 @@ from repro_torch.core.engine import (
 from repro_torch.core.events import ElasticConfig, EventLoop, EventQueue
 from repro_torch.core.faults import FaultConfig, FaultInjector
 from repro_torch.core.forecast import ForecastConfig, ForecastPlane, RefinedPerfModel
+from repro_torch.core.journal import Journal, JournalError
 from repro_torch.core.metrics import (
     edp_saving,
     elastic_summary,
@@ -70,6 +74,16 @@ from repro_torch.core.perfmodel import (
     ProfiledPerfModel,
 )
 from repro_torch.core.placement import PlacementState, domains_of_units
+from repro_torch.core.service import (
+    AdmissionConfig,
+    AdmissionGate,
+    ClusterBackend,
+    IllegalTransition,
+    JobInfo,
+    RecoveryError,
+    SchedulerService,
+    serve,
+)
 from repro_torch.core.simulator import Node, NodeSim, simulate
 from repro_torch.core.types import (
     ClusterResult,
@@ -82,9 +96,12 @@ from repro_torch.core.types import (
 )
 
 __all__ = [
+    "AdmissionConfig",
+    "AdmissionGate",
     "Arrival",
     "ArrivalRateEWMA",
     "Cluster",
+    "ClusterBackend",
     "ClusterResult",
     "ClusterRun",
     "ClusterState",
@@ -101,8 +118,12 @@ __all__ = [
     "ForecastConfig",
     "ForecastPlane",
     "HierarchicalDispatcher",
+    "IllegalTransition",
+    "JobInfo",
     "JobProfile",
     "JobSpec",
+    "Journal",
+    "JournalError",
     "Launch",
     "LeastLoadedDispatcher",
     "Marble",
@@ -118,9 +139,11 @@ __all__ = [
     "PlacementState",
     "PredictiveDispatcher",
     "ProfiledPerfModel",
+    "RecoveryError",
     "RefinedPerfModel",
     "RoundRobinDispatcher",
     "ScheduleResult",
+    "SchedulerService",
     "ScoredBatch",
     "SequentialMax",
     "SequentialOptimal",
@@ -139,6 +162,7 @@ __all__ = [
     "poisson_stream",
     "profiles_from_arrays",
     "save_trace",
+    "serve",
     "simulate",
     "specs_from_arrays",
     "summarize",

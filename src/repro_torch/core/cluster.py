@@ -926,8 +926,7 @@ class ClusterRun:
 
     ``Cluster.simulate`` is a thin batch wrapper over this class (seed
     every arrival, ``loop.run()``, ``finalize()``); a scheduler daemon
-    (the reference's ``repro.core.service``, whose twin is not ported yet)
-    instead drives it incrementally: ``submit`` pushes arrivals into the
+    (``repro_torch.core.service``) instead drives it incrementally: ``submit`` pushes arrivals into the
     live event heap, ``run_until``/``run_to_completion`` advance the
     clock, ``cancel`` drops never-launched jobs, and every lifecycle
     transition is reported through the optional ``on_transition`` callback

@@ -1,7 +1,8 @@
-"""Unified model zoo: one ``Model`` class driving the non-MoE archs.
+"""Unified model zoo: one ``Model`` class driving every arch.
 
-Twin of ``repro.models.model``.  Families: dense / ssm / hybrid / vlm /
-audio (enc-dec); MoE waits for ``models/moe.py`` (``ROADMAP.md``).  One
+Twin of ``repro.models.model``.  Families: dense / moe / ssm / hybrid /
+vlm / audio (enc-dec); MoE layers take ``models/moe.py``'s dense
+dispatch (the expert-parallel path needs a mesh, not ported).  One
 stacked parameter tree with a leading ``L`` axis, as in the reference,
 so the reference's parameters carry over leaf for leaf
 (``core/carry.params_from_numpy``).  Where the reference scans over
@@ -35,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.attention import attention
 from repro_torch.models.common import (
@@ -62,6 +64,8 @@ class Runtime:
     # decode on sliding-window layers slices the last ``window`` cache
     # entries instead of masking the full sequence
     decode_window_slice: bool = False
+    # "dense" takes the scatter dispatch; "auto" does too while no mesh
+    # exists (the expert-parallel path is not ported); "ep" raises
     moe_impl: str = "dense"
 
 
@@ -73,7 +77,17 @@ def _tmap(fn, *trees):
 
 
 def _stack(trees):
-    return _tmap(lambda *a: torch.stack(a), *trees)
+    """Stack the leaves of per-layer dicts along a new leading axis.  Each
+    leaf is taken out of its dict as it is stacked, so the per-layer
+    copies are freed leaf by leaf (at full width the layers' weights
+    would otherwise be held twice)."""
+    out = {}
+    for k in list(trees[0]):
+        if isinstance(trees[0][k], dict):
+            out[k] = _stack([t[k] for t in trees])
+        else:
+            out[k] = torch.stack([t.pop(k) for t in trees])
+    return out
 
 
 def _sinusoid_at(pos: int, dim: int, device) -> torch.Tensor:
@@ -88,11 +102,6 @@ def _sinusoid_at(pos: int, dim: int, device) -> torch.Tensor:
 
 class Model:
     def __init__(self, cfg: ModelConfig, rt: Runtime = Runtime()):
-        if cfg.uses_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE is not ported yet (models/moe.py is the "
-                "first item still to port in ROADMAP.md, Open items)"
-            )
         self.cfg = cfg
         self.rt = rt
         self.dtype = dtype_of(cfg.dtype)
@@ -134,7 +143,10 @@ class Model:
                 block["ssm_ln"] = zeros(d)
         if cfg.cross_attention:
             block["cross"] = self._attn_init(gen)
-        if cfg.d_ff:
+        if cfg.uses_moe:
+            block["moe_ln"] = zeros(d)
+            block["moe"] = moe_mod.moe_init(gen, cfg, dt)
+        elif cfg.d_ff:
             block["mlp_ln"] = zeros(d)
             block["mlp"] = swiglu_init(gen, d, cfg.d_ff, dt)
         return block
@@ -217,7 +229,14 @@ class Model:
         return o.reshape(*h.shape[:2], self.cfg.q_dim) @ attn_bp["wo"]
 
     def _mlp_sublayer(self, bp, h):
-        x = rms_norm(h, bp["mlp_ln"], self.cfg.norm_eps)
+        cfg = self.cfg
+        if cfg.uses_moe:
+            x = rms_norm(h, bp["moe_ln"], cfg.norm_eps)
+            if self.rt.moe_impl == "ep":  # no mesh exists in this package yet
+                raise RuntimeError("moe_impl='ep' requires an active mesh_context")
+            return moe_mod.moe_apply(bp["moe"], x, cfg,
+                                     capacity_factor=self.rt.capacity_factor)
+        x = rms_norm(h, bp["mlp_ln"], cfg.norm_eps)
         return swiglu_apply(bp["mlp"], x)
 
     def _ssm_prenorm(self, bp, h):
@@ -280,7 +299,7 @@ class Model:
             lc["cross_v"] = (self._enc_out @ bp["cross"]["wv"]).reshape(
                 B, Se, cfg.num_kv_heads, hd)
             h = h + self._cross_sublayer(bp["cross"], h, self._enc_out)
-        if cfg.d_ff:
+        if cfg.uses_moe or cfg.d_ff:
             h = h + self._mlp_sublayer(bp, h)
         return h, lc
 
@@ -382,7 +401,7 @@ class Model:
         h = h + sum(parts)
         if "cross" in bp:
             h = h + self._cross_decode(bp["cross"], h, lc)
-        if cfg.d_ff:
+        if cfg.uses_moe or cfg.d_ff:
             h = h + self._mlp_sublayer(bp, h)
         return h, nc
 
@@ -486,7 +505,21 @@ class Model:
             mask[:, :cfg.num_frontend_tokens] = 0.0
         ce = softmax_cross_entropy(logits, targets)
         loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-        return loss, {"ce": loss}
+        metrics = {"ce": loss}
+        if cfg.uses_moe and cfg.num_layers > 0:
+            aux = self._moe_aux(params, batch)
+            metrics["moe_aux"] = aux
+            loss = loss + self.rt.moe_aux_coef * aux
+        return loss, metrics
+
+    def _moe_aux(self, params, batch):
+        """The load-balancing loss of the first layer's router on the
+        embeddings, as the reference computes it."""
+        cfg = self.cfg
+        h = self._embed(params, batch)
+        bp0 = _tmap(lambda x: x[0], params["blocks"])
+        return moe_mod.moe_aux_loss(bp0["moe"], rms_norm(h, bp0["moe_ln"], cfg.norm_eps),
+                                    cfg)
 
     # ------------------------------------------------------------------
     def _striped(self, cache_len: int) -> bool:

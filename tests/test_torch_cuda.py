@@ -311,3 +311,54 @@ def test_hymba_shaped_prefill_launches_flash_attention(device):
     assert out["pallas_launches"] == 2 and out["blocked_launches"] == 0
     a, b = out["pallas"][0], out["blocked"][0]
     assert float((a - b).abs().max()) / float(b.abs().max()) < 1e-4
+
+
+def test_daemon_on_the_card_matches_vector(device, tmp_path):
+    """The control plane on the card: ``SchedulerService`` over the
+    ``hetero`` preset with EcoSched(engine="torch") policies writes the
+    same journal, byte for byte, as with ``engine="vector"``, ends on the
+    same schedule, and its decisions launch ``score_reduce``."""
+    from repro_torch.cli import make_backend_factory
+    from repro_torch.core import SchedulerService
+    from repro_torch.kernels import score_reduce as K
+
+    ops = [("submit", "j0", "bert", 10.0), ("submit", "j1", "lbm", 10.0),
+           ("submit", "j2", "resnet50", 40.0), ("advance", 60.0),
+           ("submit", "j3", "gpt2", 90.0), ("advance", None)]
+    got = {}
+    for engine in ("torch", "vector"):
+        path = tmp_path / f"{engine}.jnl"
+        svc = SchedulerService(make_backend_factory(
+            "hetero", elastic=True, freq_levels=3, engine=engine, device=device),
+            journal_path=str(path))
+        before = K.STATS["score_reduce"].launches
+        for op in ops:
+            if op[0] == "submit":
+                svc.submit(*op[1:])
+            else:
+                svc.advance(op[1])
+        got[engine] = (svc.result(), path.read_bytes(),
+                       K.STATS["score_reduce"].launches - before)
+        svc.close()
+    assert got["torch"][0] == got["vector"][0] and got["torch"][0]["ok"]
+    assert got["torch"][1] == got["vector"][1]
+    assert got["torch"][2] > 0 and got["vector"][2] == 0
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "arctic-480b"])
+def test_moe_layer_on_the_card_matches_cpu(device, name):
+    """One reduced MoE layer, float32, on the card and on the CPU from the
+    same weights: the same experts and drops, outputs within 1e-5."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import moe as PM
+
+    cfg = reduced(get_config(name)).replace(dtype="float32")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    p = PM.moe_init(gen, cfg, torch.float32)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen)
+    pd = {k: ({kk: vv.to(device) for kk, vv in v.items()} if isinstance(v, dict)
+              else v.to(device)) for k, v in p.items()}
+    r_cpu, r_dev = PM.route(p, x, cfg), PM.route(pd, x.to(device), cfg)
+    assert torch.equal(r_cpu[0], r_dev[0].cpu()) and torch.equal(r_cpu[2], r_dev[2].cpu())
+    torch.testing.assert_close(PM.moe_apply(pd, x.to(device), cfg).cpu(),
+                               PM.moe_apply(p, x, cfg), atol=1e-5, rtol=1e-5)

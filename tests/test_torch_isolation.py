@@ -33,6 +33,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.configs, repro_torch.models, repro_torch.train.step\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.cli, repro_torch.core.journal, repro_torch.core.service\n"
+        "import repro_torch.models.moe\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

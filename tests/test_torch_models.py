@@ -1,15 +1,18 @@
 """The port's model zoo against the reference, on the CPU.
 
-For every non-MoE arch, ``reduced(cfg)`` in float32 with the reference's
-parameters carried over by ``carry.params_from_numpy``: ``prefill``
-logits and every cache leaf, then three ``decode_step``s, match the
-reference's ``Model`` at atol/rtol 1e-4 under ``attn_impl`` "pallas" and
-"auto", and so does ``loss``; ``ssd_forward(use_pallas=True)`` matches
+For every arch, MoE (qwen2-moe-a2.7b, arctic-480b) included,
+``reduced(cfg)`` in float32 with the reference's parameters carried over
+by ``carry.params_from_numpy``: ``prefill`` logits and every cache leaf,
+then three ``decode_step``s, match the reference's ``Model`` at atol/rtol
+1e-4 under ``attn_impl`` "pallas" and "auto", and so does ``loss`` (with
+the MoE load-balancing term); ``ssd_forward(use_pallas=True)`` matches
 the reference's; the port's own prefill + decode equals its forward (rel
 < 2e-3, as ``tests/test_decode_consistency.py`` asserts of the
-reference); one bfloat16 case within 2e-2 of the reference in max
-|difference| over max |reference| (the measure ``chip_smoke.py``'s
-serving check uses); MoE archs refuse with ``NotImplementedError``.
+reference, MoE at its no-drop capacity as there); one bfloat16 case
+within 2e-2 of the reference in max |difference| over max |reference|
+(the measure ``chip_smoke.py``'s serving check uses); without a mesh,
+``moe_impl="auto"`` takes the dense dispatch and ``"ep"`` raises, as in
+the reference.  ``tests/test_torch_moe.py`` holds the MoE layer itself.
 """
 import functools
 
@@ -32,7 +35,7 @@ from repro_torch.models import ssd as PS  # noqa: E402
 from repro_torch.train import make_decode_step, make_prefill  # noqa: E402
 
 S, B, STEPS = 32, 2, 3
-DENSE = sorted(n for n, c in ARCHS.items() if not c.uses_moe)
+NAMES = sorted(ARCHS)
 MOE = sorted(n for n, c in ARCHS.items() if c.uses_moe)
 
 
@@ -107,7 +110,7 @@ def _rel_close(got, want, tol):
 
 
 @pytest.mark.parametrize("impl", ["pallas", "auto"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", NAMES)
 def test_prefill_matches_reference(name, impl):
     ref, model, params, batch, _ = _port(name, impl)
     with torch.inference_mode():
@@ -121,7 +124,7 @@ def test_prefill_matches_reference(name, impl):
 
 
 @pytest.mark.parametrize("impl", ["pallas", "auto"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", NAMES)
 def test_decode_steps_match_reference(name, impl):
     ref, model, params, batch, toks = _port(name, impl)
     step = make_decode_step(model)
@@ -136,11 +139,17 @@ def test_decode_steps_match_reference(name, impl):
         _close(v, ref["cache"][k])
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", NAMES)
 def test_prefill_then_decode_equals_forward(name):
     """prefill(t[:S]) + decode(t[S]) == forward(t[:S+1])[S], on the port
-    alone, through the kernels' route (``attn_impl="pallas"``)."""
+    alone, through the kernels' route (``attn_impl="pallas"``).  MoE runs
+    at no-drop capacity: capacity dropping depends on the sequence
+    length, so teacher-forced forward differs from decode by design."""
     _, model, params, batch, toks = _port(name, "pallas")
+    if model.cfg.uses_moe:
+        model = p_build_model(model.cfg, PRuntime(
+            attn_impl="pallas", remat="none",
+            capacity_factor=float(model.cfg.num_experts)))
     full = dict(batch, tokens=torch.from_numpy(toks[:, :S + 1]))
     with torch.inference_mode():
         want = model.forward(params, full)[:, S]
@@ -151,7 +160,7 @@ def test_prefill_then_decode_equals_forward(name):
     assert rel < 2e-3, (name, rel)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", NAMES)
 def test_loss_matches_reference(name):
     ref, model, params, batch, _ = _port(name, "pallas")
     cfg = reduced(ARCHS[name]).replace(dtype="float32")
@@ -162,7 +171,14 @@ def test_loss_matches_reference(name):
     with torch.inference_mode():
         got, metrics = model.loss(params, batch)
     _close(got, want)
-    assert float(metrics["ce"]) == float(got)
+    if model.cfg.uses_moe:
+        _, rmetrics = jax.jit(rmodel.loss)(rparams, {k: jnp.asarray(v.numpy())
+                                                     for k, v in batch.items()})
+        _close(metrics["moe_aux"], rmetrics["moe_aux"])
+        _close(metrics["ce"], rmetrics["ce"])
+        assert float(metrics["moe_aux"]) > 0
+    else:
+        assert float(metrics["ce"]) == float(got)
 
 
 @pytest.mark.parametrize("name", ["mamba2-2.7b", "hymba-1.5b"])
@@ -202,9 +218,20 @@ def test_bfloat16_hymba_matches_reference():
 
 
 @pytest.mark.parametrize("name", MOE)
-def test_moe_archs_are_refused(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_build_model(PC.reduced(PC.get_config(name)))
+def test_moe_impl_without_a_mesh(name):
+    """No mesh exists in the port: ``moe_impl="auto"`` takes the dense
+    dispatch (the same logits as ``"dense"``) and ``"ep"`` raises, as the
+    reference does without an active mesh."""
+    ref, _, params, batch, _ = _port(name, "pallas")
+    cfg = PC.reduced(PC.get_config(name)).replace(dtype="float32")
+    with torch.inference_mode():
+        auto = p_build_model(cfg, PRuntime(attn_impl="pallas", remat="none",
+                                           moe_impl="auto"))
+        _close(auto.prefill(params, batch)[0], ref["prefill"][0])
+        ep = p_build_model(cfg, PRuntime(attn_impl="pallas", remat="none",
+                                         moe_impl="ep"))
+        with pytest.raises(RuntimeError, match="mesh"):
+            ep.prefill(params, batch)
 
 
 def test_entry_points_default_to_the_card():
