@@ -3,12 +3,13 @@
 A scheduler has no weights; what both packages must share to be compared
 is the ground-truth profile table the simulator reads, the Phase-I
 estimates the decision scores and, for a fleet, the arrival stream.  A
-model has weights: its parameter tree.  The reference's objects export
-to plain dicts and numpy arrays (``dataclasses.asdict`` of a
-``JobProfile``; per-mode columns of a ``JobSpec``; ``(name, app, t)``
-rows of a stream; ``tree_map(np.asarray, params)`` of a parameter tree),
-and these functions turn that data into this package's types, value for
-value.  Nothing here imports the reference.
+model has weights: its parameter tree, and in training its whole train
+state.  The reference's objects export to plain dicts and numpy arrays
+(``dataclasses.asdict`` of a ``JobProfile``; per-mode columns of a
+``JobSpec``; ``(name, app, t)`` rows of a stream; ``tree_map(np.asarray,
+tree)`` of a parameter tree or a train state), and these functions turn
+that data into this package's types, value for value.  Nothing here
+imports the reference.
 """
 from __future__ import annotations
 
@@ -99,3 +100,18 @@ def params_from_numpy(tree: Mapping[str, Any], *, device="cuda",
 
     return {k: params_from_numpy(v, device=dev, dtype=dtype)
             if isinstance(v, Mapping) else leaf(v) for k, v in tree.items()}
+
+
+_STATE_KEYS = ("params", "opt", "step")
+
+
+def state_from_numpy(state: Mapping[str, Any], *, device="cuda") -> Dict[str, Any]:
+    """A reference train state as numpy (``{"params", "opt": {"m", "v",
+    "count"[, "master"]}, "step"[, "residuals"]}``, int8 moments as
+    ``{"q", "scale"}`` dicts) -> the port's, on ``device``: every leaf
+    keeps its type (bfloat16, float32, int8, int32) and shape, so
+    ``train.step.make_train_step`` continues the reference's run."""
+    missing = [k for k in _STATE_KEYS if k not in state]
+    if missing or not {"m", "v", "count"} <= set(state["opt"]):
+        raise ValueError(f"not a train state: missing {missing or 'opt/m, v or count'}")
+    return params_from_numpy(state, device=device)

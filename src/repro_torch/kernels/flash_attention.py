@@ -41,6 +41,11 @@ On a CPU tensor it runs :func:`flash_attention_plain`, the
 materialised-scores definition (the reference's
 ``ref.flash_attention_ref``).  Only a kernel launch counts in ``STATS``.
 
+The kernel has no backward, as the reference's has none: on a CUDA
+tensor, with grad enabled and an input that requires grad, the wrapper
+raises rather than return an output cut off from the graph.  The plain
+version, on the CPU, differentiates (the reference's ``ref`` route).
+
 The reference's TPU tiling knobs (``block_q``/``block_k``) are gone: the
 kernel picks its own tiles, and a ragged last tile is masked, so any
 sequence length is taken.
@@ -127,6 +132,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                      softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention's CUDA kernel has no backward (nor has the reference's "
+            "Pallas kernel): differentiate a plain route, attn_impl='dense' or "
+            "'blocked', or call it under torch.no_grad()")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -20,6 +20,11 @@ s_c = xᵀ (B·exp(Ltot − La)·dt); a serial pass over the chunks only,
 h_c = exp(Ltot_c)·h_{c−1} + s_c; and the outputs, the causal scores
 against x plus exp(La_i)·(C_i·h_{c−1}ᵀ).  Only a call that launches the
 kernels counts in ``STATS``, once.
+
+The kernels have no backward, as the reference's has none: on a CUDA
+tensor, with grad enabled and an input that requires grad, the wrapper
+raises rather than return outputs cut off from the graph.  The plain
+version, on the CPU, differentiates.
 """
 from __future__ import annotations
 
@@ -118,6 +123,11 @@ def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int = 256
         return ssd_scan_plain(xh, dt, A, Bm, Cm, chunk=chunk)
     if xh.device.type != "cuda":
         raise ValueError(f"unsupported device {xh.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xh, dt, A, Bm, Cm)):
+        raise RuntimeError(
+            "ssd_scan's CUDA kernels have no backward (nor has the reference's "
+            "Pallas kernel): differentiate the chunked form, "
+            "ssd_forward(use_pallas=False), or call it under torch.no_grad()")
     if hp not in HEAD_DIMS:
         raise ValueError(f"head dim {hp} not in the kernel's {HEAD_DIMS}")
     if Q > MAX_CHUNK:

@@ -2,12 +2,15 @@
 
 Twin of ``repro.models.model``.  Families: dense / moe / ssm / hybrid /
 vlm / audio (enc-dec); MoE layers take ``models/moe.py``'s dense
-dispatch (the expert-parallel path needs a mesh, not ported).  One
-stacked parameter tree with a leading ``L`` axis, as in the reference,
-so the reference's parameters carry over leaf for leaf
+dispatch, or its expert-parallel ``moe_apply_ep`` under a
+``distributed.ctx.mesh_context`` (``Runtime.moe_impl``).  One stacked
+parameter tree with a leading ``L`` axis, as in the reference, so the
+reference's parameters carry over leaf for leaf
 (``core/carry.params_from_numpy``).  Where the reference scans over
-periods of layers, this class loops over the layers in Python; a
-layer's window flag is ``cfg.layer_is_global(li % period)`` either way.
+periods of layers, this class loops over the periods in Python (the
+stacked leaves unbound once a pass, so a backward pass stacks each
+leaf's gradient once); a layer's window flag is
+``cfg.layer_is_global(li % period)`` either way.
 
 API (plain functions of explicit parameter dicts):
     init(rng, device=)               -> params
@@ -18,24 +21,37 @@ API (plain functions of explicit parameter dicts):
     decode_step(params, cache, token, pos) -> (logits, cache)
 
 Caches are returned anew, never updated in place (the reference's
-functional semantics).  The reference's ``constrain`` sharding hints are
-dropped: without sharding rules they do nothing, and the distributed
-slice brings their counterpart.  ``Runtime.remat`` is accepted and has no
-effect: serving runs under ``torch.inference_mode()``.
+functional semantics).  ``constrain`` marks the reference's sharding
+points ("embed", "residual", "attn_out"; no-ops on one card).  Where
+grad is on, ``Runtime.remat`` recomputes each period of layers in the
+backward pass as the reference's ``jax.checkpoint`` around its scanned
+period does (and each encoder layer): ``"full"`` keeps only the period's
+input (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the
+matmul outputs too (``checkpoint_dots``' counterpart, a selective
+checkpoint policy); the trailing layers that do not fill a period run
+without it, as the reference's unrolled tail.  Serving runs without
+grad, where remat does nothing.
 
 Modality frontends are stubs, as in the reference: batches carry
 precomputed patch/frame embeddings (``patch_embeds`` / ``src_embeds``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.ctx import constrain, current_mesh
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.attention import attention
@@ -58,15 +74,48 @@ class Runtime:
     """Implementation knobs orthogonal to the architecture."""
 
     attn_impl: str = "auto"  # auto | dense | blocked | pallas
-    remat: str = "full"  # none | full | dots (no effect here)
+    remat: str = "full"  # none | full | dots
     capacity_factor: float = 1.25
     moe_aux_coef: float = 0.01
     # decode on sliding-window layers slices the last ``window`` cache
     # entries instead of masking the full sequence
     decode_window_slice: bool = False
-    # "dense" takes the scatter dispatch; "auto" does too while no mesh
-    # exists (the expert-parallel path is not ported); "ep" raises
+    # "ep" routes MoE through the expert-parallel path (requires a
+    # mesh_context); "auto" uses it whenever a mesh is active and E
+    # divides the model axis; "dense" keeps the scatter dispatch
     moe_impl: str = "dense"
+
+
+_DOTS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots``: keep matmul outputs, recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` recomputed in the backward pass (``jax.checkpoint``); the
+    model draws no random numbers, so no RNG state is kept."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif mode != "full":
+        raise ValueError(f"unknown remat mode {mode!r}")
+    return functools.partial(checkpoint, fn, **kw)
+
+
+# ``_traverse`` unbinds each stacked ``(L, ...)`` leaf once a pass, so the
+# backward pass stacks each leaf's gradient once; False indexes ``x[li]``
+# out of the stacked leaf in each layer instead (each layer's backward then
+# adds its slice into a zero tensor the size of the whole leaf).  Only
+# ``tools/train_traverse_ablation.py`` sets it, to time the two.
+_UNBIND = True
 
 
 def _tmap(fn, *trees):
@@ -226,14 +275,20 @@ class Model:
     def _attn_sublayer(self, attn_bp, h, *, is_global: bool, positions):
         q, k, v = self._qkv(attn_bp, h, positions)
         o = self._self_attention(q, k, v, is_global=is_global)
-        return o.reshape(*h.shape[:2], self.cfg.q_dim) @ attn_bp["wo"]
+        o = constrain(o.reshape(*h.shape[:2], self.cfg.q_dim), "attn_out")
+        return o @ attn_bp["wo"]
 
     def _mlp_sublayer(self, bp, h):
         cfg = self.cfg
         if cfg.uses_moe:
             x = rms_norm(h, bp["moe_ln"], cfg.norm_eps)
-            if self.rt.moe_impl == "ep":  # no mesh exists in this package yet
-                raise RuntimeError("moe_impl='ep' requires an active mesh_context")
+            if self.rt.moe_impl in ("ep", "auto"):
+                mesh = current_mesh()
+                if mesh is not None and cfg.num_experts % mesh.shape.get("model", 1) == 0:
+                    return moe_mod.moe_apply_ep(bp["moe"], x, cfg, mesh,
+                                                capacity_factor=self.rt.capacity_factor)
+                if self.rt.moe_impl == "ep":
+                    raise RuntimeError("moe_impl='ep' requires an active mesh_context")
             return moe_mod.moe_apply(bp["moe"], x, cfg,
                                      capacity_factor=self.rt.capacity_factor)
         x = rms_norm(h, bp["mlp_ln"], cfg.norm_eps)
@@ -258,7 +313,7 @@ class Model:
     # ==================================================================
     # One layer: train-forward / prefill / decode
     # ==================================================================
-    def _block_fwd(self, bp, h, *, is_global: bool, positions):
+    def _block_fwd(self, bp, h, *, is_global: bool, positions, enc_out=None):
         cfg = self.cfg
         if cfg.family == "ssm":
             return h + ssd_mod.ssd_apply(bp["ssm"], self._ssm_prenorm(bp, h), cfg)
@@ -270,8 +325,9 @@ class Model:
             h = h + self._attn_sublayer(bp["attn"], h, is_global=is_global,
                                         positions=positions)
         if "cross" in bp:
-            h = h + self._cross_sublayer(bp["cross"], h, self._enc_out)
-        return h + self._mlp_sublayer(bp, h)
+            h = h + self._cross_sublayer(bp["cross"], h, enc_out)
+        h = h + self._mlp_sublayer(bp, h)
+        return constrain(h, "residual")
 
     def _block_prefill(self, bp, h, *, is_global: bool, positions):
         """Like _block_fwd but also returns this layer's cache entries."""
@@ -415,19 +471,34 @@ class Model:
         return o.reshape(B, S, cfg.q_dim) @ cp["wo"]
 
     # ==================================================================
-    # Layer-stack traversal: a Python loop over the stacked layers.
-    # ``layer_fn(bp, carry, j, x_li) -> (carry, ys|None)`` with j the
-    # layer's index within its period.
+    # Layer-stack traversal: a Python loop over periods of layers, each
+    # period recomputed in the backward pass under ``Runtime.remat``, then
+    # the trailing layers.  ``layer_fn(bp, carry, j, x_li) -> (carry,
+    # ys|None)`` with j the layer's index within its period.
     # ==================================================================
     def _traverse(self, blocks, carry, layer_fn, extra_xs: Optional[dict] = None):
-        ys = []
-        for li in range(self.cfg.num_layers):
-            bp = _tmap(lambda x: x[li], blocks)
-            x_li = None if extra_xs is None else _tmap(lambda x: x[li], extra_xs)
-            carry, y = layer_fn(bp, carry, li % self.period, x_li)
-            ys.append(y)
-        if not ys:
+        L, period = self.cfg.num_layers, self.period
+        if L == 0:
             return carry, extra_xs
+        layers = _tmap(lambda x: x.unbind(0), blocks) if _UNBIND else blocks
+
+        def run(c, lo, hi):
+            out = []
+            for li in range(lo, hi):
+                bp = _tmap(lambda x: x[li], layers)
+                x_li = None if extra_xs is None else _tmap(lambda x: x[li], extra_xs)
+                c, y = layer_fn(bp, c, li % period, x_li)
+                out.append(y)
+            return c, out
+
+        n_scan = L // period
+        periodic = _remat(run, self.rt.remat)
+        ys = []
+        for i in range(n_scan):
+            carry, out = periodic(carry, i * period, (i + 1) * period)
+            ys += out
+        carry, out = run(carry, n_scan * period, L)
+        ys += out
         return carry, (None if ys[0] is None else _stack(ys))
 
     # ==================================================================
@@ -445,7 +516,7 @@ class Model:
             S = h.shape[1]
             pos_tab = torch.from_numpy(sinusoidal_positions(S, cfg.d_model)).to(h.device)
             h = h + pos_tab[None].to(h.dtype)
-        return h
+        return constrain(h, "embed")
 
     def _head(self, params, h):
         cfg = self.cfg
@@ -459,8 +530,8 @@ class Model:
         pos_tab = torch.from_numpy(sinusoidal_positions(S, d)).to(src_embeds.device)
         h = src_embeds.to(self.dtype) + pos_tab[None].to(self.dtype)
         hd = cfg.resolved_head_dim
-        for li in range(cfg.num_encoder_layers):
-            bp = _tmap(lambda x: x[li], params["enc_blocks"])
+
+        def enc_block(h, bp):
             x = rms_norm(h, bp["attn"]["ln"], cfg.norm_eps)
             q = (x @ bp["attn"]["wq"]).reshape(B, S, cfg.num_heads, hd)
             k = (x @ bp["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
@@ -468,7 +539,12 @@ class Model:
             o = attention(q, k, v, causal=False, impl=self.rt.attn_impl,
                           q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
             h = h + o.reshape(B, S, cfg.q_dim) @ bp["attn"]["wo"]
-            h = h + swiglu_apply(bp["mlp"], rms_norm(h, bp["mlp_ln"], cfg.norm_eps))
+            return h + swiglu_apply(bp["mlp"], rms_norm(h, bp["mlp_ln"], cfg.norm_eps))
+
+        block = _remat(enc_block, self.rt.remat)
+        layers = _tmap(lambda x: x.unbind(0), params["enc_blocks"])
+        for li in range(cfg.num_encoder_layers):
+            h = block(h, _tmap(lambda x: x[li], layers))
         return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
     # ==================================================================
@@ -482,10 +558,11 @@ class Model:
         h = self._embed(params, batch)
         S = batch["tokens"].shape[1]
         positions = torch.arange(S, device=h.device)[None, :]
+        enc_out = self._enc_out  # recomputed periods read it after this returns
 
         def layer_fn(bp, c, j, _):
             return self._block_fwd(bp, c, is_global=cfg.layer_is_global(j),
-                                   positions=positions), None
+                                   positions=positions, enc_out=enc_out), None
 
         h, _ = self._traverse(params["blocks"], h, layer_fn)
         logits = self._head(params, h)

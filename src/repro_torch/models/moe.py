@@ -20,8 +20,16 @@ torch tensors, drawn from an explicit ``torch.Generator`` like
 The top-k takes the lower expert index on tied router probabilities, as
 ``jax.lax.top_k`` does (a stable descending sort; ``torch.topk``'s order
 on ties is unspecified on CUDA), so the capacity drops are the
-reference's.  The expert-parallel ``moe_apply_ep`` needs a mesh and is
-not ported (``ROADMAP.md``, distributed and launch).
+reference's.
+
+``moe_apply_ep`` is the expert-parallel path over a mesh's ``model``
+axis: column j of the mesh holds experts ``[j·E/mp, (j+1)·E/mp)``, routes
+every token of its data shard over all E experts, keeps the (token,
+slot) pairs that land on its own experts (capacity from the shard's own
+token count, positions counted over the shard's flattened tokens), and
+computes their part of the output; the columns' parts are summed (the
+reference's ``psum``).  On one card the columns run one by one and are
+summed in column order, with no float atomics.
 
 Supports qwen2-moe (shared experts + routed) and arctic (dense-residual
 FFN in parallel with the routed experts).
@@ -157,3 +165,81 @@ def moe_aux_loss(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     frac = F.one_hot(top_e, E).float().mean(dim=(0, 1, 2))  # fraction routed
     imp = probs.mean(dim=(0, 1))  # mean router prob
     return E * torch.sum(frac * imp)
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel path (the reference's shard_map over the ``model`` axis)
+# ---------------------------------------------------------------------------
+
+
+def local_route(logits: torch.Tensor, *, e_base: int, E_loc: int, k: int, C: int):
+    """Routing of one (data, model) shard: ``logits`` (T, E) float32 over
+    all experts; the local experts are ``[e_base, e_base + E_loc)``.
+    Returns, per (token, slot) pair in token-major order, the local
+    expert ``loc_e`` (``E_loc`` for a pair not kept), the position
+    ``pos`` in its buffer (``C`` when not kept), ``keep`` and the
+    renormalised weight ``flat_w``."""
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = top_k(probs, k)  # (T, k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    flat_e = top_e.reshape(-1)
+    flat_w = top_w.reshape(-1)
+    local = (flat_e >= e_base) & (flat_e < e_base + E_loc)
+    loc_e = torch.where(local, flat_e - e_base, torch.full_like(flat_e, E_loc))
+    pos = torch.cumsum(F.one_hot(loc_e, E_loc + 1), dim=0) - 1
+    pos_of = torch.gather(pos, 1, loc_e[:, None])[:, 0]
+    keep = local & (pos_of < C)
+    pos_clip = torch.where(keep, pos_of, torch.full_like(pos_of, C))
+    loc_e_c = torch.where(keep, loc_e, torch.full_like(loc_e, E_loc))
+    return loc_e_c, pos_clip, keep, flat_w
+
+
+def _local_expert_compute(x, logits, w_gate, w_up, w_down, *, e_base, k, C):
+    """One (data, model) shard: route all local tokens to local experts.
+    x (T, d); logits (T, E) float32.  Returns the partial output (T, d)."""
+    E_loc = w_gate.shape[0]
+    T, d = x.shape
+    loc_e, pos, keep, flat_w = local_route(logits, e_base=e_base, E_loc=E_loc, k=k, C=C)
+    tok = torch.repeat_interleave(x, k, dim=0)  # (T*k, d), token per slot
+    buf = torch.zeros((E_loc + 1, C + 1, d), dtype=x.dtype, device=x.device)
+    buf[loc_e, pos] = tok  # kept pairs written once; the rest land in the cut-off scratch
+    buf = buf[:E_loc, :C]
+    g = silu(torch.einsum("ecd,edf->ecf", buf, w_gate))
+    u = torch.einsum("ecd,edf->ecf", buf, w_up)
+    eo = torch.einsum("ecf,efd->ecd", g * u, w_down)  # (E_loc, C, d)
+    eo = F.pad(eo, (0, 0, 0, 1, 0, 1))
+    back = eo[loc_e, pos]  # (T*k, d)
+    back = back * (keep * flat_w)[:, None].to(back.dtype)
+    return back.reshape(T, k, d).sum(dim=1)
+
+
+def moe_apply_ep(p: dict, x: torch.Tensor, cfg, mesh, *,
+                 capacity_factor: float = 1.25) -> torch.Tensor:
+    """Expert-parallel MoE over ``mesh`` (model axis = EP); x (B, S, d)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    mp = mesh.shape.get("model", 1)
+    if E % mp:
+        raise ValueError(f"{E} experts do not divide the model axis {mp}")
+    E_loc = E // mp
+    dp = 1
+    for a in mesh.axis_names:
+        if a in ("pod", "data"):
+            dp *= mesh.shape[a]
+    n_shards = dp if (dp > 1 and B % dp == 0) else 1
+    B_loc = B // n_shards
+    T = B_loc * S
+    C = max(1, math.ceil(capacity_factor * T * k / E))
+    w = p["experts"]
+    outs = []
+    for i in range(n_shards):
+        x2 = x[i * B_loc:(i + 1) * B_loc].reshape(T, d)
+        logits = x2.float() @ p["router"]
+        out = None
+        for j in range(mp):  # the psum over model, in column order
+            cols = slice(j * E_loc, (j + 1) * E_loc)
+            part = _local_expert_compute(x2, logits, w["gate"][cols], w["up"][cols],
+                                         w["down"][cols], e_base=j * E_loc, k=k, C=C)
+            out = part if out is None else out + part
+        outs.append(out.reshape(B_loc, S, d))
+    return residual_ffn(p, x, torch.cat(outs, dim=0))

@@ -98,11 +98,15 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk: int,
 
     # ---- intra-chunk (quadratic dual form) --------------------------------
     cb = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
-    decay = torch.exp(La[:, :, :, None, :] - La[:, :, None, :, :])  # (B,nc,Q,Q,nh)
     idx = torch.arange(Q, device=xh.device)
     causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
-    scores = cb[..., None] * torch.where(causal, decay, torch.zeros((), device=xh.device))
-    scores = scores * dtc[:, :, None, :, :]
+    # the mask goes inside the exp: above the diagonal La_i - La_j > 0 can
+    # overflow (a chunk of 256 steps at |dt·A| up to 1.6), and the
+    # reference's where(causal, exp(·), 0) then sends 0·inf = NaN back
+    # through exp's gradient.  exp(-inf) = 0 gives the same forward values.
+    decay = torch.exp(torch.where(causal, La[:, :, :, None, :] - La[:, :, None, :, :],
+                                  torch.full((), -math.inf, device=xh.device)))
+    scores = cb[..., None] * decay * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores, xc)
 
     # ---- chunk states -------------------------------------------------------

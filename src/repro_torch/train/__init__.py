@@ -1,5 +1,5 @@
-"""Serving steps (twin of ``repro.train``; the training step, the
-optimizer and the loop wait for the training slice, ``ROADMAP.md``)."""
-from repro_torch.train.step import make_decode_step, make_prefill
+"""Training and serving steps (twin of ``repro.train``); the loop is
+``train.loop.Trainer``."""
+from repro_torch.train.step import init_state, make_decode_step, make_prefill, make_train_step
 
-__all__ = ["make_decode_step", "make_prefill"]
+__all__ = ["init_state", "make_decode_step", "make_prefill", "make_train_step"]

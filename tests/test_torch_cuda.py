@@ -362,3 +362,60 @@ def test_moe_layer_on_the_card_matches_cpu(device, name):
     assert torch.equal(r_cpu[0], r_dev[0].cpu()) and torch.equal(r_cpu[2], r_dev[2].cpu())
     torch.testing.assert_close(PM.moe_apply(pd, x.to(device), cfg).cpu(),
                                PM.moe_apply(p, x, cfg), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["flash_attention", "ssd_scan"])
+def test_kernel_routes_raise_under_grad(device, which):
+    """The kernels have no backward: on the card, with grad enabled and an
+    input that requires grad, the wrapper raises instead of returning an
+    output cut off from the graph; under no_grad it still serves."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    if which == "flash_attention":
+        args = [torch.randn((1, 64, 4, 64), generator=gen).to(device) for _ in range(3)]
+        call = lambda *a: ops.flash_attention(*a, causal=True)  # noqa: E731
+    else:
+        args = [torch.randn((1, 64, 2, 64), generator=gen).to(device),
+                torch.rand((1, 64, 2), generator=gen).to(device) * 0.1,
+                -torch.rand((2,), generator=gen).to(device),
+                torch.randn((1, 64, 16), generator=gen).to(device),
+                torch.randn((1, 64, 16), generator=gen).to(device)]
+        call = lambda *a: ops.ssd_scan(*a, chunk=32)  # noqa: E731
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(*args)
+    with torch.no_grad():
+        out = call(*args)
+    assert out is not None
+
+
+def test_train_step_on_the_card_matches_cpu(device):
+    """One train step of reduced hymba-1.5b (float32, TF32 off) on the card
+    and on the CPU from one state: loss rel. 1e-5, parameters within 1e-4
+    of each leaf's largest magnitude; a step with attn_impl="pallas" on
+    the card raises."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.optim import AdamW, WarmupCosine
+    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("hymba-1.5b")).replace(dtype="float32")
+    opt, sched = AdamW(), WarmupCosine(peak_lr=1e-3, warmup_steps=0, decay_steps=10)
+    state = init_state(build_model(cfg), opt, 0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(cfg, 2, 64).global_batch(0).items()}
+    step = make_train_step(build_model(cfg, Runtime(remat="full")), opt, sched)
+    want, wm = step(state, batch)
+    got, gm = step(tree_map(lambda t: t.to(device), state),
+                   {k: v.to(device) for k, v in batch.items()})
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= 1e-5 * abs(float(wm["loss"]))
+    gp = dict(leaves_with_paths(got["params"]))
+    for k, w in leaves_with_paths(want["params"]):
+        err = float((gp[k].cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        assert err < 1e-4, (k, err)
+    pallas = make_train_step(build_model(cfg, Runtime(attn_impl="pallas")), opt, sched)
+    with pytest.raises(RuntimeError, match="no backward"):
+        pallas(tree_map(lambda t: t.to(device), state), {k: v.to(device) for k, v in batch.items()})

@@ -35,6 +35,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "import repro_torch.cli, repro_torch.core.journal, repro_torch.core.service\n"
         "import repro_torch.models.moe\n"
+        "import repro_torch.tree, repro_torch.data, repro_torch.optim\n"
+        "import repro_torch.checkpoint, repro_torch.distributed.sharding\n"
+        "import repro_torch.distributed.meshes, repro_torch.distributed.fault\n"
+        "import repro_torch.train.loop, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.train, repro_torch.launch.coschedule\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -50,6 +55,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
 def _port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    # the walk reaches every package of the port, the training slice's too
+    for sub in ("data", "optim", "checkpoint", "distributed", "train", "launch"):
+        assert any(f.parent.name == sub for f in files), sub
     return files
 
 

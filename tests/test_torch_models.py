@@ -219,9 +219,9 @@ def test_bfloat16_hymba_matches_reference():
 
 @pytest.mark.parametrize("name", MOE)
 def test_moe_impl_without_a_mesh(name):
-    """No mesh exists in the port: ``moe_impl="auto"`` takes the dense
-    dispatch (the same logits as ``"dense"``) and ``"ep"`` raises, as the
-    reference does without an active mesh."""
+    """Without an active ``mesh_context``: ``moe_impl="auto"`` takes the
+    dense dispatch (the same logits as ``"dense"``) and ``"ep"`` raises,
+    as the reference does without an active mesh."""
     ref, _, params, batch, _ = _port(name, "pallas")
     cfg = PC.reduced(PC.get_config(name)).replace(dtype="float32")
     with torch.inference_mode():
