@@ -49,14 +49,23 @@ the CPU (``moe_ep_layer_qwen2_moe_a2_7b_mp4``).  Co-scheduling (phase
 13, ``cosched_trio_u4``): ``python -m repro_torch.launch.coschedule``'s
 ``main`` trains three reduced jobs on 4 logical units of the card, its
 ``EcoSched(engine="torch")`` decisions launching ``score_reduce``, each
-replayed through ``engine="vector"``.
+replayed through ``engine="vector"``.  Roofline (phase 14):
+``repro_torch.launch.dryrun.dryrun_cell`` counts hymba-1.5b's prefill,
+decode and train steps on fake tensors of the card at phases 8's and
+12's shapes (cell ``dryrun_hymba_1_5b_one_card``): nothing allocated,
+the counts near ``model_flops``, each bound at most the time the step
+took in this run, the train arguments within its measured peak; then
+prefill and decode dry-runs of five archs feed ``RooflinePerfModel``,
+which drives ``EcoSched(engine="torch")`` on the paper's H100 node
+(``roofline_sched_h100_node``) against ``engine="vector"``.
 
 Phases: 1 device and build (and the tensor-core instructions in the SASS
 of the flash kernels and the bf16 ssd kernels; a planted fault's build,
 the float32 flash kernel with one TF32 pass, beside it), 2 kernels vs
 plain versions, 3 paper node, 4
 elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer,
-10 the scheduler daemon, 11 MoE serving, 12 training, 13 co-scheduling.
+10 the scheduler daemon, 11 MoE serving, 12 training, 13 co-scheduling,
+14 roofline.
 ``score_reduce`` carries the idle-node guard in its one launch
 (``guard=``); phases 3-5 print its guarded calls, and phase 6 the
 guarded segments of the packed launches, one per staged burst.
@@ -176,6 +185,17 @@ MOE_LAYER_S, MOE_LAYER_TOL = 256, 1e-4  # one MoE layer on the card vs the CPU
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "hymba-1.5b", 4, 2048, 6
 # phase 13: the co-scheduled launcher on 4 logical units of the card
 COSCHED_UNITS, COSCHED_STEPS = 4, 20
+# phase 14: dry-runs on fake tensors of the card, one-card mesh, H100.
+# Counted FLOPs / model_flops bands (from CPU counts of the same steps),
+# and a bound may exceed the time measured in this run by 5 % at most
+ROOF_BANDS = {"prefill": (0.95, 1.10), "decode": (0.90, 1.10), "train": (1.20, 1.45)}
+ROOF_BOUND_SLACK = 1.05
+# roofline_sched_h100_node: prefill and decode cells of these archs drive
+# RooflinePerfModel; steps per job as benchmarks/bench_tpu_pod.py sets them
+# for prefill_32k and decode_32k
+ROOF_ARCHS = ("hymba-1.5b", "mamba2-2.7b", "phi4-mini-3.8b", "gemma3-4b", "qwen2-moe-a2.7b")
+ROOF_STEPS = {"prefill": 20_000, "decode": 500_000}
+ROOF_COUNTS = (1, 2, 3, 4)
 
 
 def check(cond, msg: str) -> None:
@@ -2802,6 +2822,203 @@ def phase_cosched(device, workdir, steps=COSCHED_STEPS):
     return m
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the roofline path -- dry-runs on fake tensors of the card, and
+# RooflinePerfModel driving EcoSched(engine="torch")
+# ---------------------------------------------------------------------------
+
+
+def roof_cells(train_B):
+    """Phases 8's and 12's shapes as dry-run cells (``train_B``: the
+    batch phase 12 trained)."""
+    from repro_torch.configs.base import ShapeCell
+
+    B, P, cap, S = SERVE_B, SERVE_P, SERVE_CAP, TRAIN_S
+    return {"prefill": ShapeCell(f"prefill_b{B}s{P}", "prefill", P, B),
+            "decode": ShapeCell(f"decode_b{B}c{cap}", "decode", cap, B),
+            "train": ShapeCell(f"train_b{train_B}s{S}", "train", S, train_B)}
+
+
+def dryrun_one_card(device, arch, cell, **kw):
+    """``dryrun_cell`` of ``arch`` at full width on a (1, 1) mesh against
+    the H100, on fake tensors of ``device``: the record, its
+    ``derive_terms`` and the seconds.  On the card, memory allocated must
+    not move and its peak must not rise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.meshes import AbstractMesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.roofline.hw import H100
+
+    on_card = device.type == "cuda"
+    if on_card:
+        # PyTorch initialises the CUDA context for fake tensors once per
+        # process and device with a 4-byte tensor
+        # (torch/_subclasses/fake_tensor.py, init_gpu_context): taken here,
+        # before the window, so the window holds the dry-run alone
+        with RA.fake_mode():
+            torch.empty(0, device=device)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = D.dryrun_cell(arch, cell, mesh=AbstractMesh((1, 1), ("data", "model")),
+                        device=device, **kw)
+    wall = time.perf_counter() - t0
+    if on_card:
+        after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+        check(after == before and peak == before,
+              f"dry-run {arch} {cell.name} allocated on the card: "
+              f"{before} -> {after} bytes, peak {peak}")
+    return rec, RA.derive_terms(rec, get_config(arch), cell, H100), wall
+
+
+def roof_line(arch, cell, rec, terms, wall):
+    from repro_torch.configs import get_config
+    from repro_torch.roofline import analysis as RA
+
+    floor = RA.hbm_floor_bytes(rec, get_config(arch), cell, dp=1, mp=1)
+    ct = rec["cost_totals"]
+    return (f"{arch} {cell.name}: flops={ct['flops']!r} "
+            f"model_flops={rec['model_flops_total']!r} "
+            f"ratio={ct['flops'] / rec['model_flops_total']!r} bytes={ct['bytes']!r} "
+            f"transcendentals={ct['transcendentals']!r} hbm_floor_bytes={floor!r} "
+            f"argument_bytes={rec['memory']['argument_bytes']} "
+            f"peak_bytes={rec['peak_bytes_counted']} t_compute={terms['t_compute']!r} "
+            f"t_memory={terms['t_memory']!r} t_memory_hlo={terms['t_memory_hlo']!r} "
+            f"t_collective={terms['t_collective']!r} t_bound={terms['t_bound']!r} "
+            f"dominant={terms['dominant']} trace_s={rec['trace_s_full']} "
+            f"trace_s_variants={rec.get('trace_s_variants')} wall_s={wall!r}")
+
+
+def roof_truth(cells, chip, counts, units_to_chips=1):
+    """``benchmarks/bench_tpu_pod.py``'s ``build_truth``: the roofline
+    model's curves with a per-job collective exponent the scheduler does
+    not see (inert where the collective term is 0, as on one card)."""
+    from repro_torch.core import JobProfile, RooflinePerfModel
+
+    truth = {}
+    for i, (name, cell) in enumerate(sorted(cells.items())):
+        real = dict(cell)
+        real["alpha_coll"] = 0.2 + 0.05 * (i % 5)
+        runtime, power = {}, {}
+        for g in counts:
+            chips = g * units_to_chips
+            tc, tm, tl = RooflinePerfModel(
+                {name: real}, counts=counts, chip=chip,
+                units_to_chips=units_to_chips)._terms_at(real, chips)
+            step_t = max(tc, tm, tl)
+            runtime[g] = step_t * cell["steps"]
+            util = tc / step_t
+            per_chip = chip.power_idle + (chip.power_peak - chip.power_idle) * (
+                0.3 + 0.7 * util)
+            power[g] = per_chip * chips
+        truth[name] = JobProfile(name=name, runtime=runtime, busy_power=power)
+    return truth
+
+
+def phase_roofline(device, path, measured):
+    """Cells ``dryrun_hymba_1_5b_one_card`` and ``roofline_sched_h100_node``.
+
+    The first dry-runs hymba-1.5b at full width in bf16 on a (1, 1) mesh
+    (prefill and decode as phase 8 serves them, train as phase 12 trains:
+    remat full, float32 moments, no ZeRO master copy, one microbatch), with
+    the reduced-layer variants, and holds (a) nothing allocated on the
+    card, (b) counted FLOPs / model_flops in ``ROOF_BANDS``, (c) each
+    ``t_bound`` at most ``ROOF_BOUND_SLACK`` times the time ``measured``
+    in this run (``{"prefill": s, "decode": s a step, "train": s a step,
+    "train_peak": bytes}``), (d) the train cell's argument bytes within
+    phase 12's measured peak.  The second dry-runs prefill and decode of
+    ``ROOF_ARCHS`` (``--skip-variants``), makes ``RooflinePerfModel`` cells of
+    their ``derive_terms`` and simulates the paper's H100 node with
+    ``EcoSched(engine="torch")`` against ``engine="vector"``: the same
+    schedule, and ``score_reduce`` launched (counted into ``path``)."""
+    from repro_torch.core import (EcoSched, Node, RooflinePerfModel, SequentialOptimal,
+                                  simulate, summarize)
+    from repro_torch.kernels import score_reduce as K
+    from repro_torch.models import Runtime
+    from repro_torch.roofline.hw import H100
+
+    cells = roof_cells(measured["train_B"])
+    rt = Runtime(remat="full", attn_impl="auto")
+    out = {"records": {}}
+    one_card = {}
+    for kind, cell in cells.items():
+        kw = dict(rt=rt, grad_accum=1)
+        if kind == "train":
+            kw.update(opt_dtype="float32", zero=False)
+        rec, terms, wall = dryrun_one_card(device, SERVE_ARCH, cell, **kw)
+        print("  dryrun_hymba_1_5b_one_card " + roof_line(SERVE_ARCH, cell, rec, terms, wall))
+        check(rec["cost_totals"] == rec["cost_full_module"],
+              f"{cell.name}: the extrapolated count differs from the full one")
+        ratio = rec["cost_totals"]["flops"] / rec["model_flops_total"]
+        lo, hi = ROOF_BANDS[kind]
+        check(lo <= ratio <= hi, f"{cell.name}: counted / model_flops {ratio} outside [{lo}, {hi}]")
+        frac = terms["t_bound"] / measured[kind]
+        print(f"  {cell.name}: t_bound / measured = {terms['t_bound']!r} / "
+              f"{measured[kind]!r} s = {frac!r}")
+        check(frac <= ROOF_BOUND_SLACK,
+              f"{cell.name}: bound {terms['t_bound']} s above the measured {measured[kind]} s")
+        one_card[kind] = dict(ratio=ratio, bound_fraction=frac, t_bound=terms["t_bound"],
+                              trace_s=rec["trace_s_full"], wall_s=wall)
+        out["records"][(SERVE_ARCH, kind)] = (rec, terms)
+    train, peak = out["records"][(SERVE_ARCH, "train")][0], measured["train_peak"]
+    args = train["memory"]["argument_bytes"]
+    check(args <= peak, f"train: argument bytes {args} above the measured peak {peak}")
+    one_card["train"].update(argument_over_peak=args / peak,
+                             counted_peak_over_measured=train["peak_bytes_counted"] / peak)
+    print(f"  train: argument_bytes / measured peak = {args / peak!r}; "
+          f"counted peak / measured peak = {train['peak_bytes_counted'] / peak!r}")
+    out["one_card"] = one_card
+
+    # roofline_sched_h100_node
+    sched_cells = {}
+    for arch in ROOF_ARCHS:
+        for kind in ("prefill", "decode"):
+            if (arch, kind) not in out["records"]:
+                rec, terms, wall = dryrun_one_card(device, arch, cells[kind], rt=rt,
+                                                   skip_variants=True)
+                print("  roofline_sched_h100_node " + roof_line(arch, cells[kind], rec, terms,
+                                                                 wall))
+                out["records"][(arch, kind)] = (rec, terms)
+            rec, terms = out["records"][(arch, kind)]
+            check(rec["fits_hbm"], f"{arch} {kind}: the dry-run says it does not fit")
+            sched_cells[f"{arch}@{kind}"] = {
+                "chips_ref": rec["chips"], "t_compute": terms["t_compute"],
+                "t_memory": terms["t_memory"], "t_collective": terms["t_collective"],
+                "steps": ROOF_STEPS[kind]}
+    truth = roof_truth(sched_cells, H100, ROOF_COUNTS)
+    node = Node(4, 2, H100.power_idle)
+    res = {}
+    for engine in ("torch", "vector"):
+        pm = RooflinePerfModel(sched_cells, counts=ROOF_COUNTS, chip=H100, units_to_chips=1)
+        extra = {"device": device} if engine == "torch" else {}
+        pol = EcoSched(pm, lam=LAM, tau=TAU, engine=engine, **extra)
+        if engine == "torch":
+            K.reset_stats()
+        res[engine] = simulate(pol, node, truth, queue=sorted(truth))
+        if engine == "torch":
+            kstats = read_stats()
+            path.add(kstats)
+    check(fp(res["torch"]) == fp(res["vector"]),
+          f"roofline_sched_h100_node: torch schedule {fp(res['torch'])} differs from "
+          f"vector {fp(res['vector'])}")
+    n = kstats["score_reduce"]["launches"]
+    check(n > 0, "roofline_sched_h100_node: score_reduce was never launched")
+    base = simulate(SequentialOptimal(truth), node, truth, queue=sorted(truth))
+    s = summarize(base, res["torch"])
+    choices = {r.job: r.g for r in res["torch"].records if r.kind == "run"}
+    out["sched"] = dict(fp=fp(res["torch"])[0], makespan=res["torch"].makespan,
+                        energy=res["torch"].total_energy, launches=n,
+                        guarded=kstats["score_reduce"]["guarded"], choices=choices,
+                        energy_saving=s["energy_saving"],
+                        makespan_improvement=s["makespan_improvement"],
+                        edp_saving=s["edp_saving"])
+    print("  roofline_sched_h100_node: " + " ".join(f"{k}={v!r}" for k, v in out["sched"].items()))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2918,7 +3135,7 @@ def main() -> int:
     lap("7")
 
     print("== phase 8: serving path, serve_hymba_1_5b_p2048")
-    flash_launches, _ = phase_serve(device)
+    flash_launches, served = phase_serve(device)
     for dtype, n in flash_launches.items():
         check(n > 0, f"flash_attention ({dtype}) was never launched on the serving path")
     lap("8")
@@ -2943,7 +3160,7 @@ def main() -> int:
     print("== phase 12: training, train_hymba_1_5b_b4s2048, train_elastic_granite_reduced_u4, "
           "moe_ep_layer_qwen2_moe_a2_7b_mp4")
     torch.cuda.empty_cache()
-    phase_train(device, ROOT / "build" / "train")
+    trained = phase_train(device, ROOT / "build" / "train")["train"]
     lap("12")
     print("== phase 13: co-scheduling real training jobs, cosched_trio_u4")
     cosched = phase_cosched(device, ROOT / "build" / "train")
@@ -2951,6 +3168,18 @@ def main() -> int:
           "score_reduce was never launched on the co-scheduling path")
     print(f"  co-scheduling launches: score_reduce={cosched['score_reduce_launches']}")
     lap("13")
+    print("== phase 14: roofline, dryrun_hymba_1_5b_one_card, roofline_sched_h100_node")
+    roof = phase_roofline(device, path, {
+        "prefill": served["bfloat16"]["prefill_s"],
+        "decode": served["bfloat16"]["decode_ms_per_step"] / 1e3,
+        "train": trained["s_per_step"], "train_B": trained["batch"],
+        "train_peak": trained["peak_gib"] * 2 ** 30})
+    print(f"  roofline launches: score_reduce={roof['sched']['launches']}; "
+          f"main-path launches: {path.launches}")
+    for k in kernels:  # the scheduler kernels' counts now include phase 14's
+        if k["name"] in path.launches:
+            k["launches"] = path.launches[k["name"]]["launches"]
+    lap("14")
     for name, src, line, n in (
             ("flash_attention", "flash_attention.cu", "flash_attention.py:127",
              flash_launches["bfloat16"]),

@@ -1,9 +1,9 @@
 """EcoSched core in PyTorch: the single-node decision path and the fleet.
 
-Twin of ``repro.core`` for the modules ported so far (the TPU-only
-``RooflinePerfModel`` is not).
+Twin of ``repro.core``.
 
-Phase I:  perfmodel (ProfiledPerfModel / OraclePerfModel), calibration,
+Phase I:  perfmodel (ProfiledPerfModel / RooflinePerfModel /
+          OraclePerfModel), calibration,
           forecast (RefinedPerfModel posteriors, ForecastPlane)
 Phase II: score (Eq. 1) + actions (pure-Python reference) + engine
           (vectorized batch scorer) + ecosched (the policy; its
@@ -72,6 +72,7 @@ from repro_torch.core.perfmodel import (
     DomainInterferenceModel,
     OraclePerfModel,
     ProfiledPerfModel,
+    RooflinePerfModel,
 )
 from repro_torch.core.placement import PlacementState, domains_of_units
 from repro_torch.core.service import (
@@ -141,6 +142,7 @@ __all__ = [
     "ProfiledPerfModel",
     "RecoveryError",
     "RefinedPerfModel",
+    "RooflinePerfModel",
     "RoundRobinDispatcher",
     "ScheduleResult",
     "SchedulerService",

@@ -16,7 +16,11 @@ the paper's relative-not-absolute modeling works.  Estimates are computed
 once per job and cached (paper: "this profiling stage only needs to be
 performed once").
 
-``_mk_spec`` is the shared spec constructor both models normalize
+``RooflinePerfModel`` takes one dry-run's roofline terms per job and
+scales them to every count analytically: one profile instead of one per
+count.  Same JobSpec interface, so every policy runs on any of them.
+
+``_mk_spec`` is the shared spec constructor they all normalize
 through.  Twin of ``repro.core.perfmodel``; the numpy generators are
 seeded exactly as there, so both packages draw the same estimates.
 """
@@ -234,3 +238,63 @@ class OraclePerfModel:
     def profiling_energy(self, job: str) -> float:
         return 0.0
 
+
+
+class RooflinePerfModel:
+    """Phase I from one dry-run roofline point: scaling curves without
+    profiling at every count.
+
+    ``cells``: job name → dict with per-chip roofline terms at the
+    reference chip count, plus power-model inputs:
+        {"chips_ref", "t_compute", "t_memory", "t_collective",
+         "alpha_coll" (collective growth exponent, default 0.3)}
+    Scaling g_ref → g: compute and memory shard ~1/g; the collective term
+    per chip *grows* mildly with participants (ring latency + smaller
+    shards): t_coll(g) = t_coll_ref · (g/g_ref)^alpha.  The cells come
+    from ``repro_torch.launch.dryrun`` records through
+    ``roofline.analysis.derive_terms``.
+    """
+
+    def __init__(
+        self,
+        cells: Dict[str, dict],
+        *,
+        counts=(1, 2, 3, 4),
+        chip,
+        units_to_chips: int = 64,
+    ):
+        self.cells = cells
+        self.counts = tuple(counts)
+        self.counts_for: Dict[str, tuple] = {}  # optional per-job override
+        self.chip = chip
+        self.units_to_chips = units_to_chips
+        self._cache: Dict[str, JobSpec] = {}
+
+    def _terms_at(self, cell: dict, chips: int):
+        ref = cell["chips_ref"]
+        s = ref / chips  # per-chip work scale factor
+        a = cell.get("alpha_coll", 0.3)
+        tc = cell["t_compute"] * s
+        tm = cell["t_memory"] * s
+        tl = cell["t_collective"] * (chips / ref) ** a
+        return tc, tm, tl
+
+    def spec(self, job: str) -> JobSpec:
+        if job in self._cache:
+            return self._cache[job]
+        cell = self.cells[job]
+        t_hat, p_hat = {}, {}
+        for g in self.counts_for.get(job, self.counts):
+            chips = g * self.units_to_chips
+            tc, tm, tl = self._terms_at(cell, chips)
+            t_hat[g] = max(tc, tm, tl)
+            util = tc / t_hat[g]
+            per_chip = self.chip.power_idle + (
+                self.chip.power_peak - self.chip.power_idle
+            ) * (0.3 + 0.7 * util)
+            p_hat[g] = per_chip * chips
+        self._cache[job] = _mk_spec(job, t_hat, p_hat)
+        return self._cache[job]
+
+    def profiling_energy(self, job: str) -> float:
+        return 0.0  # a roofline profile costs one dry-run, no device energy

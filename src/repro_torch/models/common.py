@@ -13,6 +13,7 @@ import math
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -82,7 +83,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     if theta <= 0:
         return x
     hd = x.shape[-1]
-    freqs = _rope_table(hd, theta, x.device)
+    # on fake tensors (a dry-run) the table is made anew, not cached: a
+    # cached fake table would stand in for the real one in later steps
+    table = _rope_table.__wrapped__ if is_fake(x) else _rope_table
+    freqs = table(hd, theta, x.device)
     angles = positions[..., None].float() * freqs  # (..., S, hd/2)
     angles = angles[..., None, :]  # broadcast over heads
     cos, sin = torch.cos(angles), torch.sin(angles)

@@ -228,9 +228,14 @@ class Model:
         else:
             dev = resolve_device("cuda" if device is None else device)
             gen = torch.Generator(device=dev).manual_seed(int(rng))
+        embed = embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
+        if cfg.num_layers:
+            blocks = _stack([self._init_block(gen) for _ in range(cfg.num_layers)])
+        else:  # no layers (the dry-run's 0-layer variant): leaves of leading extent 0
+            blocks = _tmap(lambda x: x.new_empty((0, *x.shape)), self._init_block(gen))
         params: Dict[str, Any] = {
-            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
-            "blocks": _stack([self._init_block(gen) for _ in range(cfg.num_layers)]),
+            "embed": embed,
+            "blocks": blocks,
             "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
         }
         if not cfg.tie_embeddings:

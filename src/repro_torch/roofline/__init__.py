@@ -1,1 +1,4 @@
-"""Hardware constants (twin of ``repro.roofline``; only ``hw`` so far)."""
+"""Hardware constants and roofline terms (twin of ``repro.roofline``)."""
+from repro_torch.roofline import analysis, hw
+
+__all__ = ["analysis", "hw"]

@@ -47,7 +47,9 @@ def value_and_grad(model: Model, params: dict, batch: dict):
         set_by_path(p, path, t)
     with torch.enable_grad():
         loss, metrics = model.loss(p, batch)
-        gs = torch.autograd.grad(loss, live)
+        # a leaf the loss does not reach (a layer stack of extent 0) gets
+        # zeros, as ``jax.grad`` gives it
+        gs = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
     grads: Dict = {}
     for (path, _), g in zip(flat, gs):
         set_by_path(grads, path, g)

@@ -419,3 +419,24 @@ def test_train_step_on_the_card_matches_cpu(device):
     pallas = make_train_step(build_model(cfg, Runtime(attn_impl="pallas")), opt, sched)
     with pytest.raises(RuntimeError, match="no backward"):
         pallas(tree_map(lambda t: t.to(device), state), {k: v.to(device) for k, v in batch.items()})
+
+
+def test_dryrun_on_the_card_allocates_nothing(device):
+    """A dry-run of full-width hymba-1.5b's prefill on fake tensors of the
+    card counts its program and leaves the card's memory as it was."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed.meshes import AbstractMesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import analysis as RA
+
+    with RA.fake_mode():  # PyTorch's one 4-byte CUDA context probe for fake tensors
+        torch.empty(0, device=device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec = D.dryrun_cell("hymba-1.5b", ShapeCell("p2048", "prefill", 2048, 4),
+                        mesh=AbstractMesh((1, 1), ("data", "model")), skip_variants=True,
+                        device=device)
+    assert torch.cuda.memory_allocated() == before
+    assert torch.cuda.max_memory_allocated() == before
+    assert 0.95 <= rec["cost_totals"]["flops"] / rec["model_flops_total"] <= 1.10

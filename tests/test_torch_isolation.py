@@ -40,6 +40,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.distributed.meshes, repro_torch.distributed.fault\n"
         "import repro_torch.train.loop, repro_torch.launch.mesh\n"
         "import repro_torch.launch.train, repro_torch.launch.coschedule\n"
+        "import repro_torch.roofline.analysis, repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -56,7 +57,7 @@ def _port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     # the walk reaches every package of the port, the training slice's too
-    for sub in ("data", "optim", "checkpoint", "distributed", "train", "launch"):
+    for sub in ("data", "optim", "checkpoint", "distributed", "train", "launch", "roofline"):
         assert any(f.parent.name == sub for f in files), sub
     return files
 
