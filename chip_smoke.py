@@ -19,9 +19,10 @@ and every kernel of each path must have been launched.  The serving path
 -- ``build_model`` + ``make_prefill`` + ``make_decode_step`` of the model
 zoo -- serves hymba-1.5b at full width (cell ``serve_hymba_1_5b_p2048``:
 4 prompts of 2,048 tokens, 32 decode steps, bf16 and float32), its
-prefill launching ``flash_attention`` in every layer (bf16: the wgmma
-kernel on the tensor cores; float32: the three-pass TF32 kernel, also on
-the tensor cores), against the plain blocked-attention route; ``ssd_forward(use_pallas=True)`` runs one
+prefill launching ``flash_attention`` in every layer (bf16: the
+warp-specialised kernel, a TMA producer warpgroup feeding two wgmma
+consumer warpgroups; float32: the three-pass TF32 kernel, also on the
+tensor cores), against the plain blocked-attention route; ``ssd_forward(use_pallas=True)`` runs one
 full-width mamba2-2.7b layer through ``ssd_scan`` (cell
 ``ssd_layer_mamba2_2_7b_s4096``) against the chunked form.
 
@@ -60,7 +61,8 @@ which drives ``EcoSched(engine="torch")`` on the paper's H100 node
 (``roofline_sched_h100_node``) against ``engine="vector"``.
 
 Phases: 1 device and build (and the tensor-core instructions in the SASS
-of the flash kernels and the bf16 ssd kernels; a planted fault's build,
+of the flash kernels and the bf16 ssd kernels, the TMA loads of the bf16
+flash kernel and its spills; a planted fault's build,
 the float32 flash kernel with one TF32 pass, beside it), 2 kernels vs
 plain versions, 3 paper node, 4
 elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer,
@@ -123,6 +125,10 @@ FLASH_CASES = (
     # every head dim of the kernels, ragged S, non-causal and windowed
     (1, 300, 4, 2, 96, 0, 25.0, False), (2, 333, 6, 2, 96, 100, 0.0, True),
     (1, 300, 4, 2, 16, 0, 25.0, False), (1, 300, 4, 2, 256, 0, 0.0, False),
+    # hd 128, the bf16 kernel's design point: G 1 and G 4 at a ragged S,
+    # a window with softcap, and S 4096 (the K/V ring wraps 16 times)
+    (1, 2113, 8, 8, 128, 0, 0.0, True), (1, 2113, 16, 4, 128, 0, 0.0, True),
+    (1, 1000, 8, 2, 128, 300, 30.0, True), (1, 4096, 8, 2, 128, 0, 0.0, True),
     (4, 2048, 16, 16, 128, 0, 0.0, True),  # qwen2-moe-a2.7b prefill (phase 11)
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference tests'
@@ -179,6 +185,7 @@ DAEMON_OPS = (
 # (57 GB of float32 weights at full depth would leave little room)
 MOE_ARCH, MOE_F32_LAYERS = "qwen2-moe-a2.7b", 6
 MOE_FLASH = FLASH_CASES[-1]  # its prefill: B 4, S 2048, 16 over 16 heads, hd 128
+GRANITE_FLASH = (4, 2048, 32, 8, 128, 0, 0.0, True)  # granite-8b's prefill (phase 7)
 MOE_LAYER_S, MOE_LAYER_TOL = 256, 1e-4  # one MoE layer on the card vs the CPU
 # phase 12: training hymba-1.5b at full width (bf16 parameters, float32
 # AdamW moments, remat full), 6 steps of B 4 x S 2048
@@ -219,10 +226,11 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_mma_counts(lib_path):
-    """{kernel: count of tensor-core instructions (HGMMA, HMMA) in its SASS}
-    of the built library, by ``cuobjdump -sass`` from the toolkit that built
-    it; None when the toolkit has no cuobjdump."""
+def sass_counts(lib_path):
+    """{kernel: (tensor-core instructions (HGMMA, HMMA), TMA loads
+    (UTMALDG))} in the SASS of the built library, by ``cuobjdump -sass``
+    from the toolkit that built it; None when the toolkit has no
+    cuobjdump."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc()).parent / "cuobjdump"
@@ -235,10 +243,11 @@ def sass_mma_counts(lib_path):
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HGMMA" in line or "HMMA" in line):
-            counts[fn] += 1
-    return counts
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line or "HMMA" in line
+            counts[fn][1] += "UTMALDG" in line
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def ptxas_by_kernel(log):
@@ -3062,23 +3071,32 @@ def main() -> int:
     for line in log.splitlines():
         if line.startswith(("$", "compile_s", "build_s")):
             print(f"  nvcc: {line.split(' -')[0] if line[0] == '$' else line}")
-    for fn, (regs, stores, loads) in sorted(ptxas_by_kernel(log).items()):
+    ptxas = ptxas_by_kernel(log)
+    for fn, (regs, stores, loads) in sorted(ptxas.items()):
         print(f"  ptxas: {fn} registers={regs} spill_stores={stores} spill_loads={loads}")
-    mma = sass_mma_counts(_build.library_path())
-    if mma is None:
+    # the bf16 flash kernel (one instantiation a head dim) spills nothing
+    ws = {fn: v for fn, v in ptxas.items() if "flash_kernel_ws" in fn}
+    check(len(ws) == 6 and all(v[1:] == (0, 0) for v in ws.values()),
+          f"flash_kernel_ws: want 6 instantiations without spills, ptxas says {ws}")
+    sass = sass_counts(_build.library_path())
+    if sass is None:
         print("  sass: no cuobjdump in the toolkit; tensor-core instructions not counted")
     else:  # both flash kernels must run their products on the tensor cores
-        for name, n_inst in (("flash_kernel_wgmma", 6), ("flash_kernel_tf32", 6)):
-            wg = {k: n for k, n in mma.items() if name in k}
+        for name, n_inst in (("flash_kernel_ws", 6), ("flash_kernel_tf32", 6)):
+            wg = {k: n for k, (n, _) in sass.items() if name in k}
             check(len(wg) == n_inst and all(n > 0 for n in wg.values()),
                   f"{name} lacks HGMMA/HMMA in its SASS: {wg}")
+        # and the bf16 one loads its tiles by TMA
+        tma = {k: n for k, (_, n) in sass.items() if "flash_kernel_ws" in k}
+        check(len(tma) == 6 and all(n > 0 for n in tma.values()),
+              f"flash_kernel_ws lacks UTMALDG in its SASS: {tma}")
         # and the bf16 ssd kernels (C.B^T, chunk states, outputs) theirs
-        ssd = {k: n for k, n in mma.items() if "ssd_" in k and "bfloat16" in k}
+        ssd = {k: n for k, (n, _) in sass.items() if "ssd_" in k and "bfloat16" in k}
         check(len(ssd) == 9 and all(n > 0 for n in ssd.values()),
               f"the bf16 ssd kernels lack HMMA/HGMMA in their SASS: {ssd}")
-        for k, n in sorted(mma.items()):
+        for k, (n, m) in sorted(sass.items()):
             if n or "flash" in k or "ssd_" in k:
-                print(f"  sass: {k[:110]} HGMMA/HMMA={n}")
+                print(f"  sass: {k[:110]} HGMMA/HMMA={n} UTMALDG={m}")
 
     lap("1")
     print("== phase 2: kernels vs plain versions on the card")
@@ -3120,7 +3138,7 @@ def main() -> int:
 
     window, softcap, causal = FLASH_PATH[5:]
     for name, dtype, kerns in (
-            ("flash_attention", torch.bfloat16, ("flash_kernel_wgmma",)),
+            ("flash_attention", torch.bfloat16, ("flash_kernel_ws",)),
             ("flash_attention_float32", torch.float32,
              ("flash_split_kv_kernel", "flash_kernel_tf32"))):
         fl = flash_inputs(FLASH_PATH, dtype, device, seed=99)
@@ -3129,6 +3147,8 @@ def main() -> int:
             lambda: FA.flash_attention(*fl, causal=causal, window=window, softcap=softcap),
             kerns, lambda: (FA.STATS["flash_attention"],))
     del fl
+    # granite-8b's prefill (hd 128, GQA group 4): the bf16 kernel beside SDPA
+    model_times["flash_attention_granite"] = time_flash(device, "bfloat16", GRANITE_FLASH)
     for name, t in model_times.items():
         print(f"  {name} at {t['shape']} {t.get('dtype', 'bfloat16')}: " + " ".join(
             f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))

@@ -8,45 +8,74 @@
 // pairs number 1.573e8, at 4*hd flops each (q.k and p.v): 4.0e10 flops,
 // 0.041 ms at the bf16 tensor-core rate (989 TFLOP/s), and 0.081 ms at the
 // TF32 rate (495 TFLOP/s), the fastest the card takes float32 operands.
-// The float32 route issues three TF32 products for each: 1.21e11 flops,
-// 0.244 ms at that rate (the work once in float32 FMAs outside the tensor
-// cores would take 0.60 ms at 67 TFLOP/s).  Each input read once
-// and the output written once move 63 MB in bf16, 0.019 ms at 3.35 TB/s
-// (126 MB in float32, 0.038 ms).
+// At the hd-128 configs' causal prefill (B 4, S 2048) it is 6.9e10 flops
+// (qwen2-moe-a2.7b, 16 heads) and 1.4e11 (granite-8b, 32 heads over 8):
+// 0.070 and 0.139 ms in bf16.  The float32 route issues three TF32
+// products for each: 1.21e11 flops at hymba's shape, 0.244 ms at that rate
+// (the work once in float32 FMAs outside the tensor cores would take 0.60
+// ms at 67 TFLOP/s).  Each input read once and the output written once
+// move 63 MB in bf16 at hymba's shape, 0.019 ms at 3.35 TB/s (126 MB in
+// float32, 0.038 ms).
 //
 // Two routes, picked by the input type; the wrapper never falls back.
 //
-// bf16 (the serving type): flash_kernel_wgmma, both products on the tensor
-// cores in bf16 with float32 accumulation.  One warpgroup (128 threads)
-// owns a query tile of 64 rows of one head; the grid is (head, query tile,
-// batch) with the head fastest, so the G query heads of one KV head run
-// side by side and share its K/V tiles through L2 (K/V of a whole hymba
-// call is 10.5 MB of the 50 MB L2), and query tiles run longest first.
-//   * S = Q.K^T is wgmma m64nBKk16 with Q and a K tile of BK = 64 keys (32
-//     at hd 256, where 64-key tiles spill registers) both read from shared
-//     memory, K-major (rows hd-contiguous), in the 128-, 64- or 32-byte
-//     swizzle that a panel row of 64, 32 or 16 columns takes; hd 96, 128
-//     and 256 are 3, 2 and 4 such panels.
-//   * The scale is applied to the float32 scores after the product, then
-//     softcap, then the causal / window / ragged-edge masks -- those only on
-//     a tile that straddles an edge; interior tiles skip them.  The KV-tile
-//     range per query tile is the TPU kernel's should_run (at hymba's shape
-//     408 tiles per (b, h), 94 % of their pairs unmasked).
+// bf16 (the serving type): flash_kernel_ws, FlashAttention-3's shape, both
+// products on the tensor cores in bf16 with float32 accumulation.  A block
+// of three warpgroups (384 threads) owns a query tile of 128 rows of one
+// head.  Blocks are numbered with the head fastest, so the G query heads
+// of one KV head run side by side and share its K/V tiles through L2, then
+// the query tiles longest first (causal), then the batch, so the blocks in
+// flight read one batch row's K/V (all of qwen2-moe-a2.7b's prefill K/V,
+// 64 MB, would not stay in the 50 MB L2).  One block an SM; the hardware
+// hands the next block to whichever SM frees first, which balances the
+// causal tiles better than a persistent grid striding over them.
+//   * Warp specialisation.  Warpgroup 0 is the producer: it gives registers
+//     back (setmaxnreg.dec to 24) and one thread issues TMA loads -- the Q
+//     tile once, then K and V tiles of BK keys into a ring of ST stages, K
+//     and V each with a full and an empty mbarrier per stage (full: the
+//     TMA's byte count; empty: one arrival from each consumer warp).
+//     Warpgroups 1 and 2 are consumers (setmaxnreg.inc to 240): each owns
+//     64 of the 128 query rows and reads every K/V tile, so a tile loaded
+//     serves 128 rows.  No thread of a consumer copies anything.
+//   * TMA tensor maps (cuTensorMapEncodeTiled, reached through
+//     cudaGetDriverEntryPoint, so nothing links libcuda) see q, k and v as
+//     4-D (hd, heads, positions, batch); one box is a panel of PW columns
+//     by the tile's rows, written in the 128-, 64- or 32-byte swizzle that
+//     a panel row of 64, 32 or 16 columns takes -- the layout wgmma reads.
+//     Rows past the sequence are zero-filled by the TMA.
+//   * S = Q.K^T is wgmma m64nBKk16 with both operands in shared memory,
+//     K-major (rows hd-contiguous); hd 96, 128 and 256 are 3, 2 and 4
+//     panels.  The scale goes on the float32 scores after the product,
+//     then softcap, then the causal / window / ragged-edge masks -- those
+//     only on a tile that straddles an edge for the consumer's 64 rows, as
+//     a per-row range of kept columns.  The KV-tile range per query tile
+//     is the TPU kernel's should_run.
 //   * Online softmax in registers: a thread holds two rows of the
-//     accumulator, a row's columns lie on the 4 threads of a quad, so the
-//     running max and sum need two shuffles and no score tile goes through
-//     shared memory.  A masked score is -inf, so its p is exactly 0 even
-//     while a row has met no unmasked key (the running max starts at the
-//     reference's -1e30).  l sums the float32 p.
-//   * O += P.V is wgmma m64nPWk16 with P from registers: the S accumulator
-//     of 16 key columns is already the A-fragment layout, so P is rounded
-//     to bf16 pairs in place (FlashAttention-3's trick); V is read from
-//     shared memory MN-major (transpose bit), one product per panel.
-//   * K/V tiles go through two stages of shared memory filled by cp.async
-//     (16-byte copies written in the swizzled layout, ragged rows
-//     zero-filled): tile t+1 loads while tile t computes.  TMA would free
-//     the threads' copy instructions; cp.async needs no tensor maps.
-//   Shared memory: 41 KB at hd 64, 81 KB at hd 128, 97 KB at hd 256.
+//     accumulator and a row's columns lie on the 4 threads of a quad (two
+//     shuffles for the max; the sum is reduced once, at the end).  exp is
+//     ex2 of one FFMA in the log2 domain.  A masked score is -inf, so its
+//     p is exactly 0 even while a row has met no unmasked key (the running
+//     max starts at the reference's -1e30).  l sums the float32 p.
+//   * O += P.V is wgmma m64nHDk16 (two m64n128 at hd 256) with P from
+//     registers: the S accumulator of 16 key columns is already the
+//     A-fragment layout, so P is rounded to bf16 pairs in place; V is read
+//     MN-major (transpose bit), its panels the descriptor's leading-byte
+//     steps along N.
+//   * A round j of a consumer: pack P_{j-1} (kept in S's registers since
+//     the last softmax, so no product in flight reads the registers it
+//     writes), issue S_j, rescale O by the last softmax's alpha while S_j
+//     runs (skipped where no row of the warp moved its max), issue
+//     P_{j-1}.V_{j-1} behind it, wait for S_j alone (wgmma.wait_group 1),
+//     softmax, then wait for P_{j-1}.V_{j-1}.  Named barriers pass a turn
+//     between the two consumers around each issue, so one's products run
+//     while the other does its softmax (ping-pong).  ptxas schedules the
+//     wait for P_{j-1}.V_{j-1} ahead of the softmax's arithmetic (the SASS
+//     shows it there), so inside a warpgroup the softmax does not overlap
+//     that product; the two warpgroups' alternation is the overlap there is.
+//   * No atomics: two calls give bitwise the same output.
+//   Tiles (BK keys, ST stages) and shared memory (Q, then the ring):
+//   hd 16-128 take BK 128, two stages: 20, 40, 80, 120 and 160 KB; hd 256
+//   takes BK 64 (its O accumulator is 128 registers), two stages, 192 KB.
 //
 // float32 (the parity runs, held to 2e-5): flash_kernel_tf32, both
 // products on the tensor cores as a three-pass TF32 split (3xTF32).  One
@@ -64,14 +93,14 @@
 //     shape).  The G query heads of a KV head then share one split instead
 //     of redoing it in every block, and the main kernel's K/V loads stay
 //     plain cp.async copies.
-//   * The main kernel keeps the bf16 route's frame: one warpgroup per
-//     query tile of 64 rows, grid (head, query tile, batch) with the head
-//     fastest and the longest rows first, the KV-tile range of should_run,
-//     online softmax in the accumulator registers with quad shuffles, masks
-//     only on edge tiles, the swizzled panels (a TF32 panel row of 32
-//     columns is 128 bytes; 16 columns, 64 bytes).  The scale goes on q in
-//     float32 before the split, as the reference does; Q_hi and Q_lo are
-//     split once per block into shared memory.
+//   * The main kernel: one warpgroup per query tile of 64 rows, grid
+//     (head, query tile, batch) with the head fastest and the longest rows
+//     first, the KV-tile range of should_run, online softmax in the
+//     accumulator registers with quad shuffles, masks only on edge tiles,
+//     swizzled panels (a TF32 panel row of 32 columns is 128 bytes; 16
+//     columns, 64 bytes).  The scale goes on q in float32 before the
+//     split, as the reference does; Q_hi and Q_lo are split once per block
+//     into shared memory.
 //   * TF32 wgmma reads shared-memory operands K-major only (no transpose
 //     bit).  S = Q.K^T is K-major as it stands (rows are positions, hd
 //     contiguous).  For O = P.V the B operand is V with the keys as the
@@ -109,10 +138,12 @@
 // hd), k and v (B, Skv, KVH, hd).  flash_attention_scratch gives the
 // float32 words of scratch a call needs (0 for bf16); flash_attention_launch
 // takes that scratch and returns cudaGetLastError() after its launches, or
-// cudaErrorInvalidValue for a head dim or type it does not take.
+// cudaErrorInvalidValue for a head dim or type it does not take (or a
+// tensor map that cuTensorMapEncodeTiled refuses).
 
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -120,39 +151,8 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
-constexpr int kBQ = 64;            // query rows per block (both routes)
-
-// ---------------------------------------------------------------------------
-// bf16 route: wgmma on the tensor cores
-// ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-constexpr int kTcThreads = 128;  // one warpgroup: 64 query rows
-
-// The tiles' layout in shared memory.  A tile of R rows x HD columns (Q,
-// or K or V: rows are positions, HD-contiguous) is stored as HD / PW
-// panels of R rows x PW columns; a panel row is RB = 2*PW bytes (128, 64
-// or 32) in the matching wgmma swizzle mode (128B, 64B, 32B): a linear
-// byte offset off within the 1024-byte-aligned panel is stored at
-// off ^ ((off >> 3) & (SWZ << 4)), the 16-byte chunk index XORed with the
-// row's place in its 8-row swizzle atom -- what TMA's swizzle modes write.
-template <int HD_, int BK_>
-struct Tc {
-  static constexpr int HD = HD_;
-  static constexpr int BK = BK_;
-  static constexpr int PW = HD % 64 == 0 ? 64 : (HD % 32 == 0 ? 32 : 16);
-  static constexpr int NP = HD / PW;       // panels
-  static constexpr int RB = 2 * PW;        // bytes of a panel row
-  static constexpr uint32_t SWZ = RB / 16 - 1;
-  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : (RB == 64 ? 2 : 3);
-  static constexpr int Q_BYTES = kBQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;  // one K or V tile
-  // 1024 bytes of alignment slack, Q, and two stages of K and V
-  static constexpr int SMEM = 1024 + Q_BYTES + 4 * KV_BYTES;
-  static_assert(HD % 16 == 0 && BK % 16 == 0, "wgmma k-steps");
-  static_assert((kBQ * HD / 8) % kTcThreads == 0 &&
-                (BK * HD / 8) % kTcThreads == 0, "tile loads");
-};
+constexpr int kBQ = 64;            // query rows per block (float32 route)
+constexpr int kTcThreads = 128;    // one warpgroup (float32 route)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -185,6 +185,11 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// at most N committed wgmma groups still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma that owns the register
 template <int N>
@@ -216,26 +221,48 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t addr) {
   return gmma_desc(addr, C::BK * C::RB, 8 * C::RB, C::LAYOUT);
 }
 
-// wgmma.mma_async m64nNk16, bf16 in, float32 accumulators, D += A.B (the
-// scale-d predicate is 1).  wgmma_ss: A and B from shared memory, both
-// K-major.  wgmma_rs: A from registers, B from shared memory MN-major
-// (the transpose bit).  Overloaded on the accumulator's N / 2 registers.
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
-}
+// ---------------------------------------------------------------------------
+// bf16 route: warp-specialised, TMA-fed wgmma (FlashAttention-3's shape)
+// ---------------------------------------------------------------------------
 
+using bf16 = __nv_bfloat16;
+constexpr int kWsBQ = 128;          // query rows per block: 64 per consumer
+constexpr int kWsThreads = 384;     // a producer warpgroup and two consumers
+constexpr int kProducerRegs = 24;   // each thread starts with 65536 / 384 =
+constexpr int kConsumerRegs = 240;  // 168; 128 * 24 + 256 * 240 = 384 * 168
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The tiles' layout in shared memory.  A tile of R rows x HD columns (Q,
+// or K or V: rows are positions, HD-contiguous) is HD / PW panels of R
+// rows x PW columns; a panel row is RB = 2*PW bytes (128, 64 or 32) in the
+// matching swizzle (128B, 64B, 32B): the byte at linear offset off of the
+// 1024-byte-aligned panel lies at off ^ ((off >> 3) & (RB - 16)), the
+// 16-byte chunk index XORed with the row's place in its 8-row swizzle
+// atom, which is what the TMA writes and wgmma reads in that mode.
+template <int HD_, int BK_, int ST_>
+struct Ws {
+  static constexpr int HD = HD_, BK = BK_, ST = ST_;
+  static constexpr int PW = HD % 64 == 0 ? 64 : (HD % 32 == 0 ? 32 : 16);
+  static constexpr int NP = HD / PW;  // panels
+  static constexpr int RB = 2 * PW;   // bytes of a panel row
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : (RB == 64 ? 2 : 3);
+  static constexpr int Q_BYTES = kWsBQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;  // one K or V tile
+  // 1024 bytes of alignment slack, Q, and ST stages of K and V
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * ST * KV_BYTES;
+  static constexpr int NBAR = 1 + 4 * ST;  // Q full; K, V full; K, V empty
+  static_assert(HD % 16 == 0 && BK % 16 == 0 && BK <= 256, "wgmma shapes");
+  static_assert(ST >= 2, "a ring of at least two stages");
+  static_assert(SMEM <= 227 * 1024, "a block's shared memory");
+};
+
+// wgmma.mma_async m64nNk16, bf16 in, float32 accumulators.  wgmma_ss: A
+// and B from shared memory, both K-major, D = A.B + (scale_d ? D : 0).
+// wgmma_rs: A from registers, B from shared memory MN-major (the transpose
+// bit), D += A.B; its N is the head dim, across the panels of V.
+// Overloaded on the accumulator's N / 2 registers.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db) {
+                                         uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -250,7 +277,35 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[8],
@@ -301,217 +356,472 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-
-// R rows x HD columns from device memory rows r0.. (step elements apart)
-// into the swizzled panels at dst; rows at or past n are zero-filled
-template <int R, class C>
-__device__ __forceinline__ void tc_load(uint32_t dst, const bf16* src,
-                                        long step, int r0, int n) {
-  constexpr int CPR = C::HD / 8;  // 16-byte chunks per row
-  constexpr int CPP = C::PW / 8;  // ... per panel row
-#pragma unroll
-  for (int it = 0; it < R * CPR / kTcThreads; ++it) {
-    const int e = it * kTcThreads + threadIdx.x;
-    const int r = e / CPR, c = e % CPR;
-    uint32_t off = r * C::RB + (c % CPP) * 16;
-    off ^= (off >> 3) & (C::SWZ << 4);
-    const bool in = r0 + r < n;
-    cp_async16(dst + (c / CPP) * R * C::RB + off,
-               src + (long)(in ? r0 + r : 0) * step + c * 8, in ? 16 : 0);
-  }
+__device__ __forceinline__ void wgmma_rs(float (&d)[48],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// mbarriers (shared-memory barriers that count arrivals and TMA bytes)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// one arrival that also sets the bytes the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// a PW x rows box of a 4-D tensor map (coordinates innermost first) into
+// shared memory at dst; the bytes complete on the mbarrier bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+// named barriers 1 and 2 pass the turn between the consumers: consumer c
+// waits on 1 + c, and hands the turn on by arriving at the other's
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int c) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - c) : "memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// One warpgroup per (head, query tile of 64 rows, batch); warp w owns rows
-// 16w..16w+15 and each thread two of them (row0, row0 + 8) with the
+// S = Q.K^T for one consumer's 64 rows: Q at sQc (its rows of each panel,
+// panels kWsBQ * RB apart), K at sK; the first k-step overwrites S
+template <class C>
+__device__ __forceinline__ void ws_qk(float (&s)[C::BK / 2], uint32_t sQc,
+                                      uint32_t sK) {
+#pragma unroll
+  for (int kk = 0; kk < C::HD / 16; ++kk) {
+    const int p = kk * 16 / C::PW, cb = (kk * 16) % C::PW * 2;
+    wgmma_ss(s, kmajor<C>(sQc + p * kWsBQ * C::RB + cb),
+             kmajor<C>(sK + p * C::BK * C::RB + cb), kk > 0);
+  }
+}
+// O += P.V, 64 x ON products (ON = HD up to 128 columns) per 16-key step:
+// V's panels are the descriptor's leading-byte-offset steps along N
+template <class C>
+__device__ __forceinline__ void ws_pv(float (&acc)[C::HD / 2],
+                                      const uint32_t (&pa)[C::BK / 16][4],
+                                      uint32_t sV) {
+  constexpr int ON = C::HD > 128 ? 128 : C::HD;
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk)
+#pragma unroll
+    for (int n = 0; n < C::HD / ON; ++n)
+      wgmma_rs(*reinterpret_cast<float(*)[ON / 2]>(&acc[n * ON / 2]), pa[kk],
+               mnmajor<C>(sV + n * (ON / C::PW) * C::BK * C::RB + kk * 16 * C::RB));
+}
+
+// The softmax of one S tile in place (S -> p, unrounded), with the running
+// max m (in score units) and this thread's share of the running sum l.
+// alpha is the factor O is to be rescaled by.  Scores x are s * scale, or
+// softcap * tanh(s * scale / softcap); exp(x - m) is ex2 of one FFMA with
+// sl2 = log2(e) * (scale, or 1 under softcap).  Softcap and the masks (an
+// edge tile of the consumer's rows r0..r0+63 only) are passes of their
+// own behind uniform branches, so an interior tile costs a max, an FFMA,
+// an ex2 and an add a score; maxima and sums run in four partial chains.
+template <class C>
+__device__ __forceinline__ void ws_softmax(float (&s)[C::BK / 2], float (&m)[2],
+                                           float (&l)[2], float (&alpha)[2],
+                                           int k0, int r0, int row0, int col0,
+                                           int Skv, int causal, int window,
+                                           float scale, float softcap,
+                                           float sl2) {
+  constexpr int N = C::BK / 2;
+  if (softcap > 0.f) {
+    const float a = scale / softcap;
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = softcap * tanhf(s[i] * a);
+  }
+  if (!(k0 + C::BK <= Skv && (!causal || k0 + C::BK - 1 <= r0) &&
+        (window <= 0 || k0 > r0 + 63 - window))) {
+    // row r keeps the tile's columns lo[r] <= c <= hi[r], counted from this
+    // thread's first column (c = 8 * (i >> 2) + (i & 1))
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      hi[r] = (causal ? min(qi, Skv - 1) : Skv - 1) - k0 - col0;
+      lo[r] = (window > 0 ? qi - window + 1 : 0) - k0 - col0;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = (i >> 1) & 1, c = 8 * (i >> 2) + (i & 1);
+      if (c < lo[r] || c > hi[r]) s[i] = -CUDART_INF_F;
+    }
+  }
+  float mx[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) mx[r][c] = -CUDART_INF_F;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], s[i]);
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[r], x);
+    alpha[r] = ex2((m[r] - m_new) * sl2);
+    m[r] = m_new;
+    mb[r] = m_new * sl2;
+  }
+  float sum[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    const float p = ex2(fmaf(s[i], sl2, -mb[r]));  // exactly 0 where masked
+    s[i] = p;
+    sum[r][(i >> 2) & 3] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = fmaf(l[r], alpha[r], (sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+}
+// O *= alpha, skipped where no row of the warp moved its max (faster, in
+// turns, at every prefill shape the rescale was timed at)
+template <class C>
+__device__ __forceinline__ void ws_rescale(float (&acc)[C::HD / 2],
+                                           const float (&alpha)[2]) {
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
+#pragma unroll
+    for (int i = 0; i < C::HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
+// P as bf16 A fragments: key columns 16kk..16kk+15 of the S accumulator
+// are the m64k16 A-fragment layout already
+template <class C>
+__device__ __forceinline__ void ws_pack(uint32_t (&pa)[C::BK / 16][4],
+                                        const float (&s)[C::BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// One block per (head, query tile of 128 rows, batch), numbered with the
+// head fastest (the G heads of a KV head side by side, sharing its K/V
+// tiles through L2), then the query tiles longest first (causal), then
+// the batch, so the blocks in flight read one batch row's K/V; the
+// hardware hands the next block to whichever SM frees first.  In a
+// consumer, warp w of the warpgroup owns rows 16w..16w+15 of the
+// consumer's 64 and each thread two of them (row0, row0 + 8) with the
 // wgmma accumulator layout: element i of a 64 x N accumulator is row
 // row0 + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + 2 * (lane & 3) + (i & 1).
-template <int HD, int BK>
-__global__ void __launch_bounds__(kTcThreads, 1) flash_kernel_wgmma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv, int H,
-    int KVH, int causal, int window, float scale, float softcap) {
-  using C = Tc<HD, BK>;
-  extern __shared__ __align__(1024) unsigned char tc_smem[];
-  const uint32_t sQ = (smem_u32(tc_smem) + 1023u) & ~1023u;
-  const uint32_t sKV = sQ + C::Q_BYTES;  // stage s: K, then V, at 2s tiles
+template <int HD, int BK, int ST>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_kernel_ws(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int Sq, int Skv,
+    int H, int KVH, int causal, int window, float scale, float softcap) {
+  using C = Ws<HD, BK, ST>;
+  extern __shared__ __align__(1024) unsigned char ws_smem[];
+  __shared__ __align__(8) uint64_t ws_bar[C::NBAR];
+  const uint32_t sQ = (smem_u32(ws_smem) + 1023u) & ~1023u;
+  // stage s: K at sQ + Q_BYTES + 2s tiles, V the tile after it
+  auto sK = [&](int s) { return sQ + C::Q_BYTES + 2 * s * C::KV_BYTES; };
+  const uint32_t bar0 = smem_u32(ws_bar), full_q = bar0;
+  auto full_k = [&](int s) { return bar0 + 8 * (1 + s); };
+  auto full_v = [&](int s) { return bar0 + 8 * (1 + ST + s); };
+  auto empty_k = [&](int s) { return bar0 + 8 * (1 + 2 * ST + s); };
+  auto empty_v = [&](int s) { return bar0 + 8 * (1 + 3 * ST + s); };
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = blockIdx.x;  // head fastest: a KV head's G heads run together
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
-  const int b = blockIdx.z;
+  const int nq = (Sq + kWsBQ - 1) / kWsBQ;
+  const int h = blockIdx.x % H;
+  const int q0 = (nq - 1 - blockIdx.x / H % nq) * kWsBQ;
+  const int b = blockIdx.x / (H * nq);
   const int kvh = h / (H / KVH);
-  const long q_step = (long)H * HD, kv_step = (long)KVH * HD;
-  const bf16* qb = q + ((long)b * Sq * H + h) * HD;
-  const bf16* kb = k + ((long)b * Skv * KVH + kvh) * HD;
-  const bf16* vb = v + ((long)b * Skv * KVH + kvh) * HD;
-  bf16* ob = o + ((long)b * Sq * H + h) * HD;
-
   // the KV tiles that can hold an unmasked key of this block's rows (the
   // TPU kernel's should_run)
-  const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int q_last = min(q0 + kWsBQ, Sq) - 1;
   int kt_end = (Skv + BK - 1) / BK;
   if (causal) kt_end = min(kt_end, q_last / BK + 1);
   int kt_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int n = kt_end - kt_begin;
 
-  tc_load<kBQ, C>(sQ, qb, q_step, q0, Sq);
-  if (kt_begin < kt_end) {
-    tc_load<BK, C>(sKV, kb, kv_step, kt_begin * BK, Skv);
-    tc_load<BK, C>(sKV + C::KV_BYTES, vb, kv_step, kt_begin * BK, Skv);
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 8);  // one arrival from each consumer warp
+      mbar_init(empty_v(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_commit();
+  __syncthreads();
 
-  float acc[C::NP][C::PW / 2];
-#pragma unroll
-  for (int p = 0; p < C::NP; ++p)
-#pragma unroll
-    for (int i = 0; i < C::PW / 2; ++i) acc[p][i] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf};  // running max of rows row0, row0 + 8
-  float l_part[2] = {0.f, 0.f};  // this thread's share of the running sum
-  const int row0 = q0 + 16 * warp + (lane >> 2);
-  const int col0 = 2 * (lane & 3);
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const uint32_t sK = sKV + ((kt - kt_begin) & 1) * 2 * C::KV_BYTES;
-    const uint32_t sV = sK + C::KV_BYTES;
-    if (kt + 1 < kt_end) {  // the next tile loads while this one computes
-      const uint32_t nK = sKV + ((kt + 1 - kt_begin) & 1) * 2 * C::KV_BYTES;
-      tc_load<BK, C>(nK, kb, kv_step, (kt + 1) * BK, Skv);
-      tc_load<BK, C>(nK + C::KV_BYTES, vb, kv_step, (kt + 1) * BK, Skv);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    fence_proxy_async();
-    __syncthreads();
-
-    // S = Q.K^T, float32 accumulators
-    float s[BK / 2];
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
-    fence_regs(s);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const int p = kk * 16 / C::PW, cb = (kk * 16) % C::PW * 2;
-      wgmma_ss(s, kmajor<C>(sQ + p * kBQ * C::RB + cb),
-               kmajor<C>(sK + p * BK * C::RB + cb));
-    }
-    wg_commit();
-    wg_wait0();
-    fence_regs(s);
-
-    // scale, softcap, and the masks only on a tile that straddles an edge
-    const int k0 = kt * BK;
-    const bool edge = !(k0 + BK <= Skv && (!causal || k0 + BK - 1 <= q0) &&
-                        (window <= 0 || k0 > q0 + kBQ - 1 - window));
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      float x = s[i] * scale;
-      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-      if (edge) {
-        const int qi = row0 + 8 * ((i >> 1) & 1);
-        const int kj = k0 + 8 * (i >> 2) + col0 + (i & 1);
-        const bool keep = kj < Skv && (!causal || kj <= qi) &&
-                          (window <= 0 || kj > qi - window);
-        if (!keep) x = -CUDART_INF_F;
+  if (threadIdx.x < 128) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && n > 0) {
+      mbar_expect_tx(full_q, C::Q_BYTES);
+      for (int p = 0; p < C::NP; ++p)
+        tma_load(sQ + p * kWsBQ * C::RB, &tq, full_q, p * C::PW, h, q0, b);
+      for (int j = 0; j < n; ++j) {
+        const int s = j % ST, ph = (j / ST) & 1;
+        const int k0 = (kt_begin + j) * BK;
+        mbar_wait(empty_k(s), ph ^ 1);
+        mbar_expect_tx(full_k(s), C::KV_BYTES);
+        for (int p = 0; p < C::NP; ++p)
+          tma_load(sK(s) + p * BK * C::RB, &tk, full_k(s), p * C::PW, kvh, k0, b);
+        mbar_wait(empty_v(s), ph ^ 1);
+        mbar_expect_tx(full_v(s), C::KV_BYTES);
+        for (int p = 0; p < C::NP; ++p)
+          tma_load(sK(s) + C::KV_BYTES + p * BK * C::RB, &tv, full_v(s), p * C::PW,
+                   kvh, k0, b);
       }
-      s[i] = x;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
     }
-    // online softmax: a row's columns lie on the 4 threads of a quad
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = (threadIdx.x >> 7) - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int r0 = q0 + 64 * c;
+    const int row0 = r0 + 16 * warp + (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+    const uint32_t sQc = sQ + 64 * c * C::RB;
+    const float sl2 = (softcap > 0.f ? 1.f : scale) * kLog2e;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {kNegInf, kNegInf};  // running max of rows row0, row0 + 8
+    float l_part[2] = {0.f, 0.f};  // this thread's share of the running sum
     float alpha[2];
+    float s[BK / 2];
+    uint32_t pa[BK / 16][4];
+
+    if (n > 0) {
+      if (c == 1) turn_pass(c);  // consumer 0 takes the first turn
+      mbar_wait(full_q, 0);
+      // S_0
+      mbar_wait(full_k(0), 0);
+      turn_wait(c);
+      wg_fence();
+      ws_qk<C>(s, sQc, sK(0));
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(empty_k(0));
+      ws_softmax<C>(s, m_run, l_part, alpha, kt_begin * BK, r0, row0, col0, Skv,
+                    causal, window, scale, softcap, sl2);
+      for (int j = 1; j < n; ++j) {
+        // P_{j-1}, in S's registers since the last softmax, is packed to
+        // bf16 first: the last P.V has landed, so nothing in flight reads
+        // pa.  Then S_j = Q.K_j^T goes in, O is rescaled by the last alpha
+        // while it runs, and P_{j-1}.V_{j-1} goes in behind it; the softmax
+        // of S_j can run while P_{j-1}.V_{j-1} is on the tensor cores.
+        const int st = j % ST, sp = (j - 1) % ST;
+        mbar_wait(full_k(st), (j / ST) & 1);
+        ws_pack<C>(pa, s);
+        turn_wait(c);
+        wg_fence();
+        ws_qk<C>(s, sQc, sK(st));
+        wg_commit();
+        ws_rescale<C>(acc, alpha);
+        mbar_wait(full_v(sp), ((j - 1) / ST) & 1);
+        fence_regs(acc);
+        wg_fence();
+        ws_pv<C>(acc, pa, sK(sp) + C::KV_BYTES);
+        wg_commit();
+        turn_pass(c);
+        wg_wait<1>();  // S_j has landed; P_{j-1}.V_{j-1} may still run
+        fence_regs(s);
+        if (lane == 0) mbar_arrive(empty_k(st));
+        ws_softmax<C>(s, m_run, l_part, alpha, (kt_begin + j) * BK, r0, row0, col0,
+                      Skv, causal, window, scale, softcap, sl2);
+        fence_regs(s);  // the softmax is done before the wait below
+        wg_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)  // P_{j-1} was read until here
+#pragma unroll
+          for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[kk][e])::"memory");
+        if (lane == 0) mbar_arrive(empty_v(sp));
+      }
+      // P_{n-1}.V_{n-1}; consumer 1 passes no turn after its last products
+      const int sp = (n - 1) % ST;
+      ws_pack<C>(pa, s);
+      ws_rescale<C>(acc, alpha);
+      mbar_wait(full_v(sp), ((n - 1) / ST) & 1);
+      turn_wait(c);
+      fence_regs(acc);
+      wg_fence();
+      ws_pv<C>(acc, pa, sK(sp) + C::KV_BYTES);
+      wg_commit();
+      if (c == 0) turn_pass(c);
+      wg_wait<0>();
+      fence_regs(acc);
+    }
+
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = __expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-      l_part[r] *= alpha[r];
+      float l = l_part[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = 1.f / fmaxf(l, 1e-30f);
     }
+    const long q_step = (long)H * HD;
+    bf16* ob = o + ((long)b * Sq * H + h) * HD;
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const int r = (i >> 1) & 1;
-      const float p = __expf(s[i] - m_run[r]);  // exactly 0 where masked
-      s[i] = p;
-      l_part[r] += p;
-    }
-#pragma unroll
-    for (int p = 0; p < C::NP; ++p)
-#pragma unroll
-      for (int i = 0; i < C::PW / 2; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
-
-    // P as bf16 A fragments: key columns 16kk..16kk+15 of the S
-    // accumulator are the m64k16 A-fragment layout already
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
-    // O += P.V, one 64 x PW product per panel
-#pragma unroll
-    for (int p = 0; p < C::NP; ++p) fence_regs(acc[p]);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int p = 0; p < C::NP; ++p)
-        wgmma_rs(acc[p], pa[kk],
-                 mnmajor<C>(sV + p * BK * C::RB + kk * 16 * C::RB));
-    wg_commit();
-    wg_wait0();
-#pragma unroll
-    for (int p = 0; p < C::NP; ++p) fence_regs(acc[p]);
-    __syncthreads();  // this stage's readers are done before it refills
-  }
-  cp_wait<0>();
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_part[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / fmaxf(l, 1e-30f);
-  }
-#pragma unroll
-  for (int p = 0; p < C::NP; ++p)
-#pragma unroll
-    for (int i = 0; i < C::PW / 2; i += 2) {
+    for (int i = 0; i < HD / 2; i += 2) {
       const int r = (i >> 1) & 1, qi = row0 + 8 * r;
-      if (qi >= Sq) continue;
-      *reinterpret_cast<__nv_bfloat162*>(
-          ob + qi * q_step + p * C::PW + 8 * (i >> 2) + col0) =
-          __floats2bfloat162_rn(acc[p][i] * inv[r], acc[p][i + 1] * inv[r]);
+      if (qi < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + qi * q_step + 8 * (i >> 2) + col0) =
+            __floats2bfloat162_rn(acc[i] * inv[r], acc[i + 1] * inv[r]);
     }
+  }
 }
 
-template <int HD, int BK>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* o, int B, int Sq, int Skv, int H, int KVH,
-                         int causal, int window, float scale, float softcap,
-                         cudaStream_t st) {
-  auto kern = flash_kernel_wgmma<HD, BK>;
-  const int bytes = Tc<HD, BK>::SMEM;
+// cuTensorMapEncodeTiled, an entry point of libcuda reached through the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a (B, S, heads, HD) bf16 tensor seen as 4-D (HD,
+// heads, S, B), one box a panel of PW columns by `rows` positions of one
+// head, in the panel's swizzle; positions past S read as zeros
+template <class C>
+bool ws_map(CUtensorMap* map, const void* base, int B, int S, int heads, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C::HD, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C::HD * 2, (cuuint64_t)heads * C::HD * 2,
+                                 (cuuint64_t)S * heads * C::HD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::PW, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      C::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                   : (C::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int BK, int ST>
+cudaError_t launch_ws(const void* q, const void* k, const void* v, void* o, int B,
+                      int Sq, int Skv, int H, int KVH, int causal, int window,
+                      float scale, float softcap, cudaStream_t st) {
+  using C = Ws<HD, BK, ST>;
+  CUtensorMap tq, tk, tv;
+  if (!ws_map<C>(&tq, q, B, Sq, H, kWsBQ) || !ws_map<C>(&tk, k, B, Skv, KVH, BK) ||
+      !ws_map<C>(&tv, v, B, Skv, KVH, BK))
+    return cudaErrorInvalidValue;
+  auto kern = flash_kernel_ws<HD, BK, ST>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H, (Sq + kBQ - 1) / kBQ, B);
-  kern<<<grid, kTcThreads, bytes, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, H, KVH,
-      causal, window, scale, softcap);
+  const long blocks = (long)(Sq + kWsBQ - 1) / kWsBQ * H * B;
+  kern<<<(unsigned)blocks, kWsThreads, C::SMEM, st>>>(
+      tq, tk, tv, static_cast<bf16*>(o), Sq, Skv, H, KVH, causal, window, scale,
+      softcap);
   return cudaGetLastError();
 }
 
@@ -519,21 +829,21 @@ cudaError_t launch_bf16(int hd, const void* q, const void* k, const void* v,
                         void* o, int B, int Sq, int Skv, int H, int KVH,
                         int causal, int window, float scale, float softcap,
                         cudaStream_t st) {
-#define REPRO_FLASH_TC(HD, BK)                                                \
+#define REPRO_FLASH_WS(HD, BK, ST)                                            \
   case HD:                                                                    \
-    return launch_wgmma<HD, BK>(q, k, v, o, B, Sq, Skv, H, KVH, causal,       \
-                                window, scale, softcap, st);
+    return launch_ws<HD, BK, ST>(q, k, v, o, B, Sq, Skv, H, KVH, causal,      \
+                                 window, scale, softcap, st);
   switch (hd) {
-    REPRO_FLASH_TC(16, 64)
-    REPRO_FLASH_TC(32, 64)
-    REPRO_FLASH_TC(64, 64)
-    REPRO_FLASH_TC(96, 64)
-    REPRO_FLASH_TC(128, 64)
-    REPRO_FLASH_TC(256, 32)  // 64-key tiles spill at hd 256
+    REPRO_FLASH_WS(16, 128, 2)
+    REPRO_FLASH_WS(32, 128, 2)
+    REPRO_FLASH_WS(64, 128, 2)
+    REPRO_FLASH_WS(96, 128, 2)
+    REPRO_FLASH_WS(128, 128, 2)
+    REPRO_FLASH_WS(256, 64, 2)  // the O accumulator alone is 128 registers
     default:
       return cudaErrorInvalidValue;
   }
-#undef REPRO_FLASH_TC
+#undef REPRO_FLASH_WS
 }
 
 // ---------------------------------------------------------------------------

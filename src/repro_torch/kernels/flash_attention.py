@@ -16,9 +16,19 @@ of ``csrc/flash_attention.cu`` (built at first use by ``_build``) or
 raises; it never falls back.  The input type picks the kernel, every
 head dim of :data:`HEAD_DIMS` on both:
 
-* bfloat16 (the serving type) runs ``flash_kernel_wgmma``: both products
-  on the tensor cores (``wgmma``, bf16 in, float32 accumulation, P
-  rounded to bf16 for P·V).
+* bfloat16 (the serving type) runs ``flash_kernel_ws``, in
+  FlashAttention-3's shape: a block of three warpgroups owns 128 query
+  rows of one head.  The producer warpgroup (its registers given to the
+  others) issues TMA loads -- Q once, K and V tiles into a ring of two
+  stages with full and empty mbarriers -- from tensor maps the launch
+  encodes; two consumer warpgroups of 64 rows each run both products on
+  the tensor cores (``wgmma``, bf16 in, float32 accumulation, P rounded
+  to bf16 in registers for P·V), S_j issued beside P_{j-1}·V_{j-1}, and
+  named barriers pass the turn between them so one's products run
+  beside the other's softmax.  Key tiles are 128 (64 at hd 256); shared
+  memory per block is Q and two stages of K and V: 20, 40, 80, 120, 160
+  and 192 KB at hd 16, 32, 64, 96, 128 and 256.  No atomics: two calls
+  give the same bits.
 * float32 runs ``flash_kernel_tf32``, both products on the tensor cores
   as a three-pass TF32 split: each operand x becomes hi = tf32(x) and
   lo = tf32(x − hi), and a product is lo·hi + hi·lo + hi·hi in float32
@@ -142,7 +152,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:  # the kernels copy 16-byte chunks
+        if t.data_ptr() % 16:  # 16-byte copies and TMA tensor maps
             raise ValueError(f"{name} must be 16-byte aligned")
     if Skv == 0:
         raise ValueError("flash_attention needs at least one key")

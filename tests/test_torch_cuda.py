@@ -206,6 +206,13 @@ def test_fleet_stages_through_the_batch_kernel(device):
                                    (1, 300, 4, 2, 32, 0, 25.0, False),
                                    (1, 300, 4, 2, 96, 0, 25.0, False),
                                    (1, 300, 4, 2, 256, 0, 25.0, False),
+                                   # hd 128 (bf16: flash_kernel_ws): G 1 and G 4 at
+                                   # a ragged S, a window with softcap, and S 4096
+                                   # (the K/V ring wraps 16 times)
+                                   (1, 2113, 8, 8, 128, 0, 0.0, True),
+                                   (1, 2113, 16, 4, 128, 0, 0.0, True),
+                                   (1, 1000, 8, 2, 128, 300, 30.0, True),
+                                   (1, 4096, 8, 2, 128, 0, 0.0, True),
                                    # steep scores: q and k x 3 (score std about 9)
                                    (1, 256, 4, 2, 64, 0, 0.0, True, 3.0),
                                    (1, 300, 4, 2, 128, 0, 0.0, False, 3.0),
@@ -235,6 +242,25 @@ def test_flash_attention_kernel_matches_plain(device, shape, dtype, tol):
     torch.cuda.synchronize()
     assert got.dtype == q.dtype
     torch.testing.assert_close(got.double(), want.double(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(4, 2048, 16, 16, 128, 0, True),
+                                   (1, 2113, 16, 4, 128, 300, True),
+                                   (1, 300, 4, 2, 64, 0, False)])
+def test_flash_attention_bf16_launches_are_bitwise_equal(device, shape):
+    """No atomics: two launches of the bf16 kernel on the same inputs give
+    the same bits."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, S, H, KVH, hd, window, causal = shape
+    rng = np.random.default_rng(S + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, n, hd)).astype(np.float32))
+               .to(device, torch.bfloat16) for n in (H, KVH, KVH))
+    kw = dict(causal=causal, window=window)
+    a = FA.flash_attention(q, k, v, **kw)
+    b = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

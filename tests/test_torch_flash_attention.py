@@ -7,7 +7,10 @@ reference's ``ref.flash_attention_ref`` on every case of
 kernel in interpret mode on two of them.  Tolerances are the reference
 tests': 2e-5 in float32, 2e-2 in bfloat16.  The float32 CUDA kernel's
 arithmetic, a three-pass TF32 split, is emulated here and held to 2e-5
-of float64 attention.  The CUDA kernels themselves are held against the
+of float64 attention; the bfloat16 kernel's (128-row query tiles, key
+tiles of 128 or 64, online softmax in the log2 domain, P rounded to bf16
+per tile) is emulated and held to 2e-2 of float64 attention and of the
+reference's oracle.  The CUDA kernels themselves are held against the
 plain version in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import math
@@ -210,6 +213,114 @@ def test_tf32_split_holds_float32_tolerance(case):
     if amp > 1:
         one = _attention(q, k, v, passes=1, **kw).double().numpy()
         assert not np.allclose(one, want, atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 kernel's arithmetic (flash_kernel_ws), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+WS_CASES = [  # (B, S, H, KVH, hd, window, softcap, causal)
+    (1, 300, 4, 4, 16, 0, 0.0, True),
+    (1, 1000, 8, 2, 32, 0, 25.0, False),
+    (2, 300, 10, 2, 64, 150, 0.0, True),  # window 150: edges inside key tiles
+    (1, 1000, 5, 1, 64, 0, 0.0, False),
+    (1, 100, 5, 1, 96, 0, 0.0, True),  # S below one query tile
+    (1, 1000, 4, 1, 128, 200, 0.0, True),
+    (1, 300, 4, 4, 128, 0, 30.0, False),
+    (1, 64, 8, 2, 128, 0, 0.0, True),
+    (1, 1000, 16, 4, 128, 0, 0.0, True),
+    (1, 300, 4, 4, 256, 0, 0.0, True),
+    (2, 300, 8, 2, 256, 100, 20.0, True),
+]
+WS_BQ = 128  # query rows of a block: two consumers of 64
+
+
+def _ws_key_tile(hd):
+    return 64 if hd == 256 else 128
+
+
+def _ws_attention(q, k, v, *, causal, window, softcap, rescale=True):
+    """Attention as flash_kernel_ws computes it, from bf16 inputs: per
+    query tile of 128 rows, the key tiles of should_run in order; scores
+    x in float32 (the raw product, or softcap*tanh(product*scale/softcap)),
+    masked to -inf; the running max from -1e30; p = 2^(x*sl2 - m*sl2) with
+    sl2 = log2(e)*scale (log2(e) under softcap); l = l*alpha + sum of the
+    float32 p; O = O*alpha + bf16(p).V; o = O / max(l, 1e-30) in bf16.
+    ``rescale=False`` leaves out O's rescale (a planted fault)."""
+    B, S, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    BK = _ws_key_tile(hd)
+    scale = 1.0 / math.sqrt(hd)
+    sl2 = (1.0 if softcap > 0 else scale) * math.log2(math.e)
+    qh = q.float().permute(0, 2, 1, 3)  # (B, H, S, hd)
+    kh = k.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    vh = v.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    out = torch.empty(B, H, S, hd, dtype=torch.bfloat16)
+    for q0 in range(0, S, WS_BQ):
+        rows = torch.arange(q0, q0 + WS_BQ)
+        q_last = min(q0 + WS_BQ, S) - 1
+        kt_end = -(-Skv // BK)
+        if causal:
+            kt_end = min(kt_end, q_last // BK + 1)
+        kt_begin = (q0 - window + 1) // BK if window > 0 and q0 - window + 1 > 0 else 0
+        qt = torch.zeros(B, H, WS_BQ, hd)
+        qt[:, :, :min(WS_BQ, S - q0)] = qh[:, :, q0:q0 + WS_BQ]
+        m = torch.full((B, H, WS_BQ, 1), -1e30)
+        l = torch.zeros(B, H, WS_BQ, 1)
+        o = torch.zeros(B, H, WS_BQ, hd)
+        for kt in range(kt_begin, kt_end):
+            cols = torch.arange(kt * BK, kt * BK + BK)
+            kk = torch.zeros(B, H, BK, hd)
+            vv = torch.zeros(B, H, BK, hd)
+            n = min(BK, Skv - kt * BK)
+            kk[:, :, :n] = kh[:, :, kt * BK:kt * BK + n]
+            vv[:, :, :n] = vh[:, :, kt * BK:kt * BK + n]
+            x = qt @ kk.transpose(-1, -2)
+            if softcap > 0:
+                x = softcap * torch.tanh(x * (scale / softcap))
+            keep = cols[None, :] < Skv
+            if causal:
+                keep = keep & (cols[None, :] <= rows[:, None])
+            if window > 0:
+                keep = keep & (cols[None, :] > rows[:, None] - window)
+            x = x.masked_fill(~keep, -math.inf)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2((m - m_new) * sl2)
+            p = torch.exp2(x * sl2 - m_new * sl2)  # exactly 0 where masked
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = (o * alpha if rescale else o) + p.to(torch.bfloat16).float() @ vv
+            m = m_new
+        out[:, :, q0:q0 + WS_BQ] = (o / l.clamp_min(1e-30))[:, :, :min(WS_BQ, S - q0)].to(
+            torch.bfloat16)
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("case", WS_CASES, ids=str)
+def test_bf16_kernel_arithmetic_holds_its_tolerance(case):
+    """The bf16 kernel's tiles and rescale order, emulated, stay within
+    the reference's 2e-2 of float64 attention and of its own oracle."""
+    B, S, H, KVH, hd, window, softcap, causal = case
+    arrays = [a.astype(np.float32) for a in _inputs(B, S, S, H, KVH, hd, seed=S + hd + H)]
+    (jq, jk, jv), (q, k, v) = _both(arrays, "bfloat16")
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _ws_attention(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    exact = FA.flash_attention_plain(q.double(), k.double(), v.double(), **kw)
+    np.testing.assert_allclose(got.double().numpy(), exact.numpy(), atol=2e-2, rtol=2e-2)
+    _close(got, R.flash_attention_ref(jq, jk, jv, **kw), 2e-2)
+
+
+def test_bf16_emulation_without_rescale_fails():
+    """The comparison sees the rescale: O not rescaled when a later key
+    tile raises a row's max misses 2e-2 on a long causal case."""
+    B, S, H, KVH, hd, window, softcap, causal = WS_CASES[8]
+    (_, _, _), (q, k, v) = _both(_inputs(B, S, S, H, KVH, hd, seed=5), "bfloat16")
+    q = (q.float() * 3).to(torch.bfloat16)  # steep scores: the max moves
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    exact = FA.flash_attention_plain(q.double(), k.double(), v.double(), **kw).numpy()
+    bad = _ws_attention(q, k, v, rescale=False, **kw).double().numpy()
+    assert not np.allclose(bad, exact, atol=2e-2, rtol=2e-2)
 
 
 def test_public_wrapper_refuses_float64_the_plain_version_takes():
