@@ -34,7 +34,16 @@ repro_torch.cli daemon`` subprocess on the card that is killed with
 SIGKILL and booted again on its journal.  MoE serving
 (``serve_qwen2_moe_a2_7b_p2048``) runs phase 8's checks on
 qwen2-moe-a2.7b at full width (float32 at 6 of 24 layers) and holds one
-MoE layer on the card to the CPU.
+MoE layer on the card to the CPU.  Phase 15 runs phase 8's checks on the
+families no earlier phase serves, at full width and depth in both types:
+the dense gemma3-4b (``serve_gemma3_4b_p2048``: hd 256, a window of 1,024
+on 5 of every 6 layers, qk-norm, a tied 262,144-row head), the
+vision-language phi-3-vision-4.2b (``serve_phi3_vision_4_2b_p2048``: hd
+96, 576 patch embeddings spliced over each prompt's first positions) and
+the encoder-decoder whisper-base (``serve_whisper_base_src1500``: a
+non-causal encoder over 1,500 frames through ``flash_attention``, a
+causal decoder, cross-attention into the frames), and times
+``flash_attention`` at their prefill shapes beside SDPA.
 
 Training (phase 12): ``python -m repro_torch.launch.train``'s ``main``
 trains hymba-1.5b at full width on the card (cell
@@ -67,7 +76,7 @@ the float32 flash kernel with one TF32 pass, beside it), 2 kernels vs
 plain versions, 3 paper node, 4
 elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer,
 10 the scheduler daemon, 11 MoE serving, 12 training, 13 co-scheduling,
-14 roofline.
+14 roofline, 15 serving the dense, vision and encoder-decoder families.
 ``score_reduce`` carries the idle-node guard in its one launch
 (``guard=``); phases 3-5 print its guarded calls, and phase 6 the
 guarded segments of the packed launches, one per staged burst.
@@ -130,6 +139,12 @@ FLASH_CASES = (
     (1, 2113, 8, 8, 128, 0, 0.0, True), (1, 2113, 16, 4, 128, 0, 0.0, True),
     (1, 1000, 8, 2, 128, 300, 30.0, True), (1, 4096, 8, 2, 128, 0, 0.0, True),
     (4, 2048, 16, 16, 128, 0, 0.0, True),  # qwen2-moe-a2.7b prefill (phase 11)
+    # phase 15's prefills: gemma3-4b's local and global layers (hd 256, G 2),
+    # phi-3-vision-4.2b's (hd 96, G 1), whisper-base's encoder (non-causal,
+    # 1,500 frames: a ragged last tile)
+    (4, 2048, 8, 4, 256, 1024, 0.0, True), (4, 2048, 8, 4, 256, 0, 0.0, True),
+    (4, 2048, 32, 32, 96, 0, 0.0, True), (8, 1500, 8, 8, 64, 0, 0.0, False),
+    (8, 224, 8, 8, 64, 0, 0.0, True),  # whisper-base's decoder prefill
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference tests'
 # steep scores, as trained weights give them: q and k x FLASH_STEEP (score
@@ -140,6 +155,7 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference tests'
 FLASH_STEEP, FLASH_STEEP_CASES = 3.0, (
     (1, 256, 4, 2, 64, 0, 0.0, True), (1, 300, 4, 2, 128, 0, 0.0, False),
     (1, 200, 2, 1, 256, 0, 0.0, True), (2, 512, 8, 2, 128, 0, 0.0, True),
+    (1, 1500, 8, 8, 64, 0, 0.0, False),  # whisper-base's encoder, one row
 )
 FLASH_FAULT = "-DREPRO_FLASH_F32_ONE_PASS"  # planted fault: the lo terms dropped
 # ssd: (B, S, nh, hp, N, chunk)
@@ -184,7 +200,7 @@ DAEMON_OPS = (
 # phase 11: qwen2-moe-a2.7b at full width; float32 at 6 of its 24 layers
 # (57 GB of float32 weights at full depth would leave little room)
 MOE_ARCH, MOE_F32_LAYERS = "qwen2-moe-a2.7b", 6
-MOE_FLASH = FLASH_CASES[-1]  # its prefill: B 4, S 2048, 16 over 16 heads, hd 128
+MOE_FLASH = FLASH_CASES[20]  # its prefill: B 4, S 2048, 16 over 16 heads, hd 128
 GRANITE_FLASH = (4, 2048, 32, 8, 128, 0, 0.0, True)  # granite-8b's prefill (phase 7)
 MOE_LAYER_S, MOE_LAYER_TOL = 256, 1e-4  # one MoE layer on the card vs the CPU
 # phase 12: training hymba-1.5b at full width (bf16 parameters, float32
@@ -203,6 +219,14 @@ ROOF_BOUND_SLACK = 1.05
 ROOF_ARCHS = ("hymba-1.5b", "mamba2-2.7b", "phi4-mini-3.8b", "gemma3-4b", "qwen2-moe-a2.7b")
 ROOF_STEPS = {"prefill": 20_000, "decode": 500_000}
 ROOF_COUNTS = (1, 2, 3, 4)
+# phase 15: the dense, vision and encoder-decoder families at full width,
+# and their flash_attention shapes timed (FLASH_CASES' last five)
+FAMILY_FLASH = dict(zip(("gemma3_4b_local", "gemma3_4b_global", "phi3_vision_4_2b",
+                         "whisper_base_encoder", "whisper_base_decoder"), FLASH_CASES[-5:]))
+# whisper's plain blocked route cuts the queries into chunks that must
+# divide the length (the reference's blocked route asserts the same):
+# 1,500 frames are no multiple of the config's 1,024, so 500 there
+WHISPER_Q_CHUNK = 500
 
 
 def check(cond, msg: str) -> None:
@@ -729,7 +753,7 @@ def phase_model_kernels(device, one_pass):
     # "flash_attention" is the bf16 (wgmma) kernel, the float32 one its own;
     # "ssd_scan" the bf16 instantiation of the ssd kernels, float32 its own
     err = {"flash_attention": 0.0, "flash_attention_float32": 0.0, "ssd_scan": 0.0,
-           "ssd_scan_float32": 0.0}
+           "ssd_scan_float32": 0.0, "flash_by_case": {}}
     hds = set()
     for i, case in enumerate(FLASH_CASES + FLASH_STEEP_CASES):
         steep = i >= len(FLASH_CASES)
@@ -748,6 +772,8 @@ def phase_model_kernels(device, one_pass):
                   f"(tol {tol})")
             key = "flash_attention" if name == "bfloat16" else "flash_attention_float32"
             err[key] = max(err[key], d)
+            if not steep:
+                err["flash_by_case"][case, name] = d
             extra = ""
             if steep:  # the kernel and the plain float32 version, each off the exact answer
                 extra = (f" (vs float64; share of tol {tol_share(got, want, tol)!r}; plain "
@@ -1741,15 +1767,31 @@ def rel_err(a, b) -> float:
     return float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-def serve_tokens(cfg, device, B, P, seed=SEED):
+def serve_batch(cfg, device, B, P, seed=SEED):
+    """A seeded serving batch of the family of ``cfg``, made with numpy: B
+    prompts of P tokens; for a patch frontend (phi-3-vision) the
+    ``num_frontend_tokens`` patch embeddings spliced over the first
+    positions, at the embedding table's scale (std 0.02); for an
+    encoder-decoder (whisper) ``max_source_positions`` frame embeddings of
+    std 1 (the sinusoids added to them are of that size)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int64)).to(device)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int64)}
+    if cfg.frontend == "patch_stub":
+        batch["patch_embeds"] = 0.02 * rng.standard_normal(
+            (B, cfg.num_frontend_tokens, cfg.d_model), dtype=np.float32)
+    if cfg.is_encoder_decoder:
+        batch["src_embeds"] = rng.standard_normal(
+            (B, cfg.max_source_positions, cfg.d_model), dtype=np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
 def pad_cache(cache, cap):
+    """The self-attention cache's k and v padded to ``cap`` positions; the
+    other leaves (an SSM state, whisper's cross cache over the source
+    frames) as they are."""
     import torch.nn.functional as F
 
     return {k: (F.pad(v, (0, 0, 0, 0, 0, cap - v.shape[2])) if k in ("k", "v") else v)
@@ -1808,7 +1850,11 @@ def layerwise_rel_err(kern, plain, params, batch, extra=None):
     """The largest rel. errors of one layer's attention output and of its
     output, the kernel route's against the plain route's, with every layer
     of both fed the plain route's input to it (so differences cannot
-    compound across layers).  In an MoE model a bf16 difference in the
+    compound across layers); an encoder-decoder's encoder layers too, and
+    both routes' decoder layers then attend across to the plain route's
+    encoder output.  A layer's window flag is ``layer_is_global(li %
+    period)``, as the model's traversal gives it (gemma3's 34 layers end in
+    4 local ones after 5 periods).  In an MoE model a bf16 difference in the
     attention output can move a token across its top-k boundary, which
     changes that token's output by the size of an expert's: so the
     layer's output is compared with the kernel route's MoE taking the
@@ -1816,12 +1862,24 @@ def layerwise_rel_err(kern, plain, params, batch, extra=None):
     kernel route's own routing and the tokens whose experts or drops
     differ (``routing_flips`` per layer, of ``tokens``)."""
     import torch
+    from repro_torch.models.common import rms_norm
     from repro_torch.models.model import _tmap
 
     cfg = plain.cfg
+    attn, out, own, flips = 0.0, 0.0, 0.0, []
+    if cfg.is_encoder_decoder:  # the encoder's layers, then the plain route's
+        h = plain._enc_input(batch["src_embeds"])  # output feeds both decoders
+        for li in range(cfg.num_encoder_layers):
+            bp = _tmap(lambda x: x[li], params["enc_blocks"])
+            q, k, v = plain._enc_qkv(bp["attn"], h)
+            attn = max(attn, rel_err(kern._enc_attention(q, k, v),
+                                     plain._enc_attention(q, k, v)))
+            del q, k, v
+            hk, h = kern._enc_block(h, bp), plain._enc_block(h, bp)
+            out = max(out, rel_err(hk, h))
+        kern._enc_out = plain._enc_out = rms_norm(h, params["enc_norm"], cfg.norm_eps)
     h = plain._embed(params, batch)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    attn, out, own, flips = 0.0, 0.0, 0.0, []
     for li in range(cfg.num_layers):
         bp = _tmap(lambda x: x[li], params["blocks"])
         g = cfg.layer_is_global(li % plain.period)
@@ -1847,6 +1905,7 @@ def layerwise_rel_err(kern, plain, params, batch, extra=None):
             hk, _ = kern._block_prefill(bp, h, is_global=g, positions=positions)
             h, _ = plain._block_prefill(bp, h, is_global=g, positions=positions)
         out = max(out, rel_err(hk, h))
+    kern._enc_out = plain._enc_out = None
     if extra is not None and cfg.uses_moe:
         extra.update(layer_out_rel_err_own_routing=own, routing_flips=flips,
                      tokens=int(h.shape[0] * h.shape[1]))
@@ -1860,8 +1919,22 @@ def window_ignored(cfg, rt):
     return build_model(cfg.replace(sliding_window=0), rt)
 
 
+def encoder_causal(cfg, rt):
+    """whisper's planted fault: the kernel route with the encoder's
+    attention made causal (each frame blind to the frames after it)."""
+    from repro_torch.models.attention import attention
+    from repro_torch.models.model import Model
+
+    class CausalEncoder(Model):
+        def _enc_attention(self, q, k, v):
+            return attention(q, k, v, causal=True, impl=self.rt.attn_impl,
+                             q_chunk=self.cfg.attn_q_chunk, kv_chunk=self.cfg.attn_kv_chunk)
+
+    return CausalEncoder(cfg, rt)
+
+
 def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS,
-                cap=SERVE_CAP, layers=None, fault=window_ignored):
+                cap=SERVE_CAP, layers=None, fault=window_ignored, cfg_kw=None):
     """Cell ``serve_hymba_1_5b_p2048`` (``arch`` and the other arguments
     name another cell), in bf16 and float32: seeded weights
     made on the card, prefill through ``attn_impl="pallas"`` (the kernel)
@@ -1872,7 +1945,12 @@ def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS
     each layer of both routes on the plain route's input to it, and the
     same for a planted fault (``fault(cfg, rt)``: by default the kernel
     route with the window ignored), which the per-layer and end-to-end
-    checks must catch.  ``layers`` maps a dtype to a cut depth.  Launches are counted on the
+    checks must catch.  ``layers`` maps a dtype to a cut depth;
+    ``cfg_kw`` replaces fields of the config that are no widths (whisper's
+    blocked query chunk).  The batch is the family's (``serve_batch``);
+    an encoder-decoder's encoder runs on its frames, and each prefill
+    launches ``flash_attention`` once a decoder and once an encoder
+    layer.  Launches are counted on the
     prefills through the user entry points (warm-up and timed; the counts
     are set to 0 before the phase).  Returns (launches by type, metrics by
     type)."""
@@ -1882,14 +1960,14 @@ def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS
     from repro_torch.models import Runtime, build_model
     from repro_torch.train import make_decode_step, make_prefill
 
-    base = get_config(arch)
+    base = get_config(arch).replace(**(cfg_kw or {}))
     out, launches = {}, {}
     FA.reset_stats()
     for dtype, tol in SERVE_TOL.items():
         cfg = base.replace(dtype=dtype)
         if layers and layers.get(dtype):
             cfg = cfg.replace(num_layers=layers[dtype])
-        L = cfg.num_layers
+        L = cfg.num_layers + cfg.num_encoder_layers  # launches a prefill
         kern = build_model(cfg, Runtime(attn_impl="pallas", remat="none"))
         plain = build_model(cfg, Runtime(attn_impl="blocked", remat="none"))
         routes = {"k": kern, "p": plain}
@@ -1897,10 +1975,10 @@ def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS
             routes["d"] = build_model(cfg, Runtime(attn_impl="dense", remat="none"))
         gen = torch.Generator(device=device).manual_seed(SEED)
         params = kern.init(gen)
-        batch = {"tokens": serve_tokens(cfg, device, B, P)}
+        batch = serve_batch(cfg, device, B, P)
         prefill = {r: make_prefill(mdl) for r, mdl in routes.items()}
         step = {r: make_decode_step(mdl) for r, mdl in routes.items()}
-        m = {"layers": L}
+        m = {"layers": cfg.num_layers, "encoder_layers": cfg.num_encoder_layers}
         with torch.inference_mode():
             n0 = FA.STATS["flash_attention"]
             prefill["k"](params, batch)  # warm-up: cuBLAS handles, first launches
@@ -2434,6 +2512,75 @@ def phase_serve_moe(device):
     out["moe_layer"] = phase_moe_layer(device)
     out["flash"] = t
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: serving the dense, vision and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+
+def family_cells():
+    """Phase 15's cells: each a ``phase_serve`` at full width and depth, in
+    bf16 and float32, with its family's planted fault."""
+    return {
+        # B 4 x 2,048 prompt tokens, cache 2,080, 32 decode steps (phase 8's)
+        "serve_gemma3_4b_p2048": dict(arch="gemma3-4b", fault=window_ignored),
+        # 576 patch embeddings + 1,472 text tokens a prompt
+        "serve_phi3_vision_4_2b_p2048": dict(arch="phi-3-vision-4.2b", fault=causal_ignored),
+        # 1,500 frames (one 30 s window) a prompt of 224 tokens, cache 448
+        "serve_whisper_base_src1500": dict(arch="whisper-base", B=8, P=224, cap=448,
+                                           fault=encoder_causal,
+                                           cfg_kw={"attn_q_chunk": WHISPER_Q_CHUNK}),
+    }
+
+
+def phase_serve_families(device, cells=None):
+    """Cells ``serve_gemma3_4b_p2048`` (34 layers: 5 periods of 5 local and
+    1 global layer, then 4 local; hd 256, 8 over 4 heads, window 1,024,
+    qk-norm, a tied 262,144-row head), ``serve_phi3_vision_4_2b_p2048``
+    (hd 96, 32 over 32 heads, 576 patch embeddings spliced over the first
+    positions) and ``serve_whisper_base_src1500`` (a non-causal encoder of
+    6 layers over 1,500 frames, a causal decoder of 6 with cross-attention
+    into them): phase 8's ``phase_serve`` each, with the counts set to 0
+    before each cell and read after it.  Then ``flash_attention`` at each
+    new prefill shape (``FAMILY_FLASH``) by events, SDPA in turns, and the
+    bound.  Returns (launches by cell and type, metrics by cell and type,
+    timings by shape)."""
+    import torch
+
+    launches, out, flash = {}, {}, {}
+    for cell, kw in (cells or family_cells()).items():
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        launches[cell], out[cell] = phase_serve(device, **kw)
+        for dtype, n in launches[cell].items():
+            check(n > 0, f"{cell}: flash_attention ({dtype}) was never launched")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        for shape, case in FAMILY_FLASH.items():
+            flash[shape] = t = time_flash(device, "bfloat16", case=case)
+            print(f"  flash_attention {shape} at {case} bfloat16: " + " ".join(
+                f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
+    return launches, out, flash
+
+
+def family_launches(launches):
+    """Each ``FAMILY_FLASH`` shape's launches in its cell's bf16 prefills:
+    the wrapper's count over the cell (checked there to be the attention
+    layers times the prefills) split by the layers of that shape."""
+    from repro_torch.configs import get_config
+
+    g = get_config("gemma3-4b")
+    period = g.local_global_ratio + 1
+    glob = sum(g.layer_is_global(li % period) for li in range(g.num_layers))
+    n_g = launches["serve_gemma3_4b_p2048"]["bfloat16"] // g.num_layers
+    w = get_config("whisper-base")
+    n_w = launches["serve_whisper_base_src1500"]["bfloat16"] // (w.num_layers
+                                                                 + w.num_encoder_layers)
+    return {"gemma3_4b_local": n_g * (g.num_layers - glob), "gemma3_4b_global": n_g * glob,
+            "phi3_vision_4_2b": launches["serve_phi3_vision_4_2b_p2048"]["bfloat16"],
+            "whisper_base_encoder": n_w * w.num_encoder_layers,
+            "whisper_base_decoder": n_w * w.num_layers}
 
 
 # ---------------------------------------------------------------------------
@@ -3107,7 +3254,8 @@ def main() -> int:
     diff = phase_kernels(device)
     print(f"  cases={diff.cases} max_abs_err={diff.max_abs}")
     model_err = phase_model_kernels(device, one_pass)
-    print(f"  model kernels: max_abs_err={model_err}")
+    print(f"  model kernels: max_abs_err="
+          f"{ {k: v for k, v in model_err.items() if k != 'flash_by_case'} }")
     lap("2")
 
     path = MainPath()
@@ -3200,6 +3348,12 @@ def main() -> int:
         if k["name"] in path.launches:
             k["launches"] = path.launches[k["name"]]["launches"]
     lap("14")
+    print("== phase 15: dense, vision and encoder-decoder serving, serve_gemma3_4b_p2048, "
+          "serve_phi3_vision_4_2b_p2048, serve_whisper_base_src1500")
+    torch.cuda.empty_cache()
+    family, _, family_flash = phase_serve_families(device)
+    print(f"  family serving launches: flash_attention={family}")
+    lap("15")
     for name, src, line, n in (
             ("flash_attention", "flash_attention.cu", "flash_attention.py:127",
              flash_launches["bfloat16"]),
@@ -3214,6 +3368,15 @@ def main() -> int:
             max_abs_err=model_err[name], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"]))
+    for shape, n in family_launches(family).items():
+        t = family_flash[shape]
+        kernels.append(dict(
+            name=f"flash_attention_{shape}", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:127", launches=n,
+            max_abs_err=model_err["flash_by_case"][FAMILY_FLASH[shape], "bfloat16"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     print(f"  phase_seconds={laps} total_s={time.perf_counter() - t_start:.1f}")
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,12 @@ import torch
 _tls = threading.local()
 
 
+def current_rules() -> Optional[Dict[str, object]]:
+    """The rule table installed by the innermost ``sharding_rules``, or
+    None outside one."""
+    return getattr(_tls, "rules", None)
+
+
 @contextlib.contextmanager
 def sharding_rules(rules: Optional[Dict[str, object]]):
     """Install tag -> NamedSharding constraints for the enclosed step."""

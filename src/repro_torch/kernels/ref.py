@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import (
+    NEG_INF,
     flash_attention_plain as flash_attention_ref,
 )
 
@@ -37,4 +38,4 @@ def ssd_ref(xh, dt, A, Bm, Cm, *, h0: Optional[torch.Tensor] = None):
     return y, h
 
 
-__all__ = ["flash_attention_ref", "ssd_ref"]
+__all__ = ["NEG_INF", "flash_attention_ref", "ssd_ref"]

@@ -529,28 +529,42 @@ class Model:
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return h @ w
 
-    def _encode(self, params, src_embeds):
-        cfg = self.cfg
+    def _enc_input(self, src_embeds):
+        """The encoder's input: the frame embeddings plus sinusoids."""
         B, S, d = src_embeds.shape
         pos_tab = torch.from_numpy(sinusoidal_positions(S, d)).to(src_embeds.device)
-        h = src_embeds.to(self.dtype) + pos_tab[None].to(self.dtype)
+        return src_embeds.to(self.dtype) + pos_tab[None].to(self.dtype)
+
+    def _enc_attention(self, q, k, v):
+        """The encoder's self-attention: every frame sees every frame."""
+        cfg = self.cfg
+        return attention(q, k, v, causal=False, impl=self.rt.attn_impl,
+                         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+
+    def _enc_qkv(self, attn_bp, h):
+        """An encoder layer's q, k, v: no qk-norm and no rotary positions."""
+        cfg = self.cfg
+        B, S, _ = h.shape
         hd = cfg.resolved_head_dim
+        x = rms_norm(h, attn_bp["ln"], cfg.norm_eps)
+        return ((x @ attn_bp["wq"]).reshape(B, S, cfg.num_heads, hd),
+                (x @ attn_bp["wk"]).reshape(B, S, cfg.num_kv_heads, hd),
+                (x @ attn_bp["wv"]).reshape(B, S, cfg.num_kv_heads, hd))
 
-        def enc_block(h, bp):
-            x = rms_norm(h, bp["attn"]["ln"], cfg.norm_eps)
-            q = (x @ bp["attn"]["wq"]).reshape(B, S, cfg.num_heads, hd)
-            k = (x @ bp["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-            v = (x @ bp["attn"]["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
-            o = attention(q, k, v, causal=False, impl=self.rt.attn_impl,
-                          q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
-            h = h + o.reshape(B, S, cfg.q_dim) @ bp["attn"]["wo"]
-            return h + swiglu_apply(bp["mlp"], rms_norm(h, bp["mlp_ln"], cfg.norm_eps))
+    def _enc_block(self, h, bp):
+        """One encoder layer: bidirectional self-attention, then the MLP."""
+        cfg = self.cfg
+        o = self._enc_attention(*self._enc_qkv(bp["attn"], h))
+        h = h + o.reshape(*h.shape[:2], cfg.q_dim) @ bp["attn"]["wo"]
+        return h + swiglu_apply(bp["mlp"], rms_norm(h, bp["mlp_ln"], cfg.norm_eps))
 
-        block = _remat(enc_block, self.rt.remat)
+    def _encode(self, params, src_embeds):
+        h = self._enc_input(src_embeds)
+        block = _remat(self._enc_block, self.rt.remat)
         layers = _tmap(lambda x: x.unbind(0), params["enc_blocks"])
-        for li in range(cfg.num_encoder_layers):
+        for li in range(self.cfg.num_encoder_layers):
             h = block(h, _tmap(lambda x: x[li], layers))
-        return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+        return rms_norm(h, params["enc_norm"], self.cfg.norm_eps)
 
     # ==================================================================
     # Public API

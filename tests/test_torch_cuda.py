@@ -213,10 +213,18 @@ def test_fleet_stages_through_the_batch_kernel(device):
                                    (1, 2113, 16, 4, 128, 0, 0.0, True),
                                    (1, 1000, 8, 2, 128, 300, 30.0, True),
                                    (1, 4096, 8, 2, 128, 0, 0.0, True),
+                                   # the served families' prefills: gemma3-4b's
+                                   # local and global layers, phi-3-vision's,
+                                   # whisper-base's encoder (non-causal, ragged)
+                                   (4, 2048, 8, 4, 256, 1024, 0.0, True),
+                                   (4, 2048, 8, 4, 256, 0, 0.0, True),
+                                   (4, 2048, 32, 32, 96, 0, 0.0, True),
+                                   (8, 1500, 8, 8, 64, 0, 0.0, False),
                                    # steep scores: q and k x 3 (score std about 9)
                                    (1, 256, 4, 2, 64, 0, 0.0, True, 3.0),
                                    (1, 300, 4, 2, 128, 0, 0.0, False, 3.0),
-                                   (1, 200, 2, 1, 256, 0, 0.0, True, 3.0)])
+                                   (1, 200, 2, 1, 256, 0, 0.0, True, 3.0),
+                                   (1, 1500, 8, 8, 64, 0, 0.0, False, 3.0)])
 def test_flash_attention_kernel_matches_plain(device, shape, dtype, tol):
     """The kernel against its plain version on the same card tensors; the
     plain float32 version runs without TF32.  On steep scores float32

@@ -341,3 +341,10 @@ def test_variant_builds_are_keyed_apart():
     assert [p.name for p in _build.sources(["flash_attention"])] == ["flash_attention.cu"]
     assert _build.library_path([], ["flash_attention"]) != real
     assert _build.library_path(["-DX"]) != real
+
+
+def test_neg_inf_matches_reference():
+    """``kernels.ref`` exports the masks' fill value, the reference's
+    ``NEG_INF`` (-1e30), which the plain version and the model's masks use."""
+    assert PR.NEG_INF == R.NEG_INF == FA.NEG_INF == PA.NEG_INF == -1e30
+    assert "NEG_INF" in PR.__all__

@@ -16,12 +16,14 @@ torch = pytest.importorskip("torch")
 
 from repro.compat import abstract_mesh  # noqa: E402
 from repro.configs import ARCHS, get_config  # noqa: E402
+from repro.distributed import ctx as RC  # noqa: E402
 from repro.distributed import sharding as RS  # noqa: E402
 from repro.models import Runtime, build_model  # noqa: E402
 from repro.optim import AdamW, AdamWConfig  # noqa: E402
 from repro_torch import configs as PC  # noqa: E402
 from repro_torch import models as PMod  # noqa: E402
 from repro_torch import optim as PO  # noqa: E402
+from repro_torch.distributed import ctx as PCtx  # noqa: E402
 from repro_torch.distributed import meshes as PMe  # noqa: E402
 from repro_torch.distributed import sharding as PS  # noqa: E402
 from repro_torch.distributed.meshes import P  # noqa: E402
@@ -167,3 +169,20 @@ def test_mesh_over_two_cards_is_refused():
              PMe.LogicalDevice(1, torch.device("cuda", 1))]
     with pytest.raises(NotImplementedError):
         PMe.make_mesh((1, 2), ("data", "model"), devices=units)
+
+
+def test_current_rules_matches_reference():
+    """``current_rules()``: None outside ``sharding_rules``, the installed
+    table inside it (the innermost one when nested, None under
+    ``sharding_rules(None)``), restored on exit, in both packages."""
+    outer, inner = {"embed": P("data", None)}, {"residual": P(None, "model")}
+    for ctx in (RC, PCtx):
+        assert ctx.current_rules() is None
+        with ctx.sharding_rules(outer):
+            assert ctx.current_rules() is outer
+            with ctx.sharding_rules(inner):
+                assert ctx.current_rules() is inner
+            with ctx.sharding_rules(None):
+                assert ctx.current_rules() is None
+            assert ctx.current_rules() is outer
+        assert ctx.current_rules() is None
