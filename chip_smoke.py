@@ -119,15 +119,30 @@ CHIP_SLOW = {"h100": 1.0, "a100": 1.6, "v100": 2.6}
 KERNELS = ("score_reduce", "score_reduce_batch", "score_reduce_multi")
 BF16_OPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 tensor cores, dense
+# the serving path's flash_attention shapes, each its prefill's:
+# (B, S, H, KVH, hd, window, softcap, causal)
+HYMBA_FLASH = (4, 2048, 25, 5, 64, 1024, 0.0, True)  # hymba-1.5b (phases 7, 8)
+MOE_FLASH = (4, 2048, 16, 16, 128, 0, 0.0, True)  # qwen2-moe-a2.7b (phase 11)
+GRANITE_FLASH = (4, 2048, 32, 8, 128, 0, 0.0, True)  # granite-8b (phase 7)
+# phase 15's: gemma3-4b's local and global layers (hd 256, G 2),
+# phi-3-vision-4.2b's (hd 96, G 1), whisper-base's encoder (non-causal,
+# 1,500 frames: a ragged last tile) and decoder
+FAMILY_FLASH = dict(
+    gemma3_4b_local=(4, 2048, 8, 4, 256, 1024, 0.0, True),
+    gemma3_4b_global=(4, 2048, 8, 4, 256, 0, 0.0, True),
+    phi3_vision_4_2b=(4, 2048, 32, 32, 96, 0, 0.0, True),
+    whisper_base_encoder=(8, 1500, 8, 8, 64, 0, 0.0, False),
+    whisper_base_decoder=(8, 224, 8, 8, 64, 0, 0.0, True),
+)
 # the model kernels' cases: the reference's kernel tests
 # (tests/test_kernels_flash.py, tests/test_kernels_ssd.py) plus the
-# serving path's shapes.  flash: (B, S, H, KVH, hd, window, softcap, causal)
+# serving path's shapes (but granite-8b's, timed in phase 7 only)
 FLASH_CASES = (
     (2, 128, 4, 2, 64, 0, 0.0, True), (1, 256, 8, 2, 32, 0, 0.0, True),
     (1, 256, 8, 2, 32, 64, 0.0, True), (2, 128, 2, 2, 64, 0, 30.0, True),
     (1, 128, 4, 1, 128, 32, 0.0, True), (1, 64, 4, 4, 16, 0, 0.0, True),
     (2, 192, 6, 2, 64, 96, 20.0, True), (1, 128, 4, 4, 32, 0, 0.0, False),
-    (4, 2048, 25, 5, 64, 1024, 0.0, True),  # hymba-1.5b prefill
+    HYMBA_FLASH,
     (1, 2048, 32, 8, 128, 0, 0.0, True),  # granite-like
     (1, 1024, 8, 4, 256, 512, 30.0, True),  # gemma3-like
     (1, 1000, 8, 2, 64, 128, 0.0, True),  # ragged S
@@ -138,13 +153,10 @@ FLASH_CASES = (
     # a window with softcap, and S 4096 (the K/V ring wraps 16 times)
     (1, 2113, 8, 8, 128, 0, 0.0, True), (1, 2113, 16, 4, 128, 0, 0.0, True),
     (1, 1000, 8, 2, 128, 300, 30.0, True), (1, 4096, 8, 2, 128, 0, 0.0, True),
-    (4, 2048, 16, 16, 128, 0, 0.0, True),  # qwen2-moe-a2.7b prefill (phase 11)
-    # phase 15's prefills: gemma3-4b's local and global layers (hd 256, G 2),
-    # phi-3-vision-4.2b's (hd 96, G 1), whisper-base's encoder (non-causal,
-    # 1,500 frames: a ragged last tile)
-    (4, 2048, 8, 4, 256, 1024, 0.0, True), (4, 2048, 8, 4, 256, 0, 0.0, True),
-    (4, 2048, 32, 32, 96, 0, 0.0, True), (8, 1500, 8, 8, 64, 0, 0.0, False),
-    (8, 224, 8, 8, 64, 0, 0.0, True),  # whisper-base's decoder prefill
+    MOE_FLASH, *FAMILY_FLASH.values(),
+    # causal, enough tile pairs for a persistent grid, and an odd tile
+    # count: the middle tile walks alone
+    (4, 1408, 32, 8, 128, 0, 0.0, True),
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference tests'
 # steep scores, as trained weights give them: q and k x FLASH_STEEP (score
@@ -170,7 +182,7 @@ SSD_CASES = (
     (2, 512, 8, 32, 16, 128), (2, 192, 3, 64, 40, 96),
 )
 SSD_TOL = 2e-4
-FLASH_PATH, SSD_PATH = FLASH_CASES[8], SSD_CASES[4]  # phase 7's timed shapes
+FLASH_PATH, SSD_PATH = HYMBA_FLASH, SSD_CASES[4]  # phase 7's timed shapes
 SERVE_ARCH, SERVE_B, SERVE_P, SERVE_STEPS, SERVE_CAP = "hymba-1.5b", 4, 2048, 32, 2080
 # rel. max error (max |diff| / max |plain|) of the kernel route against the
 # plain blocked route.  Per layer, each layer fed the plain route's input
@@ -200,8 +212,6 @@ DAEMON_OPS = (
 # phase 11: qwen2-moe-a2.7b at full width; float32 at 6 of its 24 layers
 # (57 GB of float32 weights at full depth would leave little room)
 MOE_ARCH, MOE_F32_LAYERS = "qwen2-moe-a2.7b", 6
-MOE_FLASH = FLASH_CASES[20]  # its prefill: B 4, S 2048, 16 over 16 heads, hd 128
-GRANITE_FLASH = (4, 2048, 32, 8, 128, 0, 0.0, True)  # granite-8b's prefill (phase 7)
 MOE_LAYER_S, MOE_LAYER_TOL = 256, 1e-4  # one MoE layer on the card vs the CPU
 # phase 12: training hymba-1.5b at full width (bf16 parameters, float32
 # AdamW moments, remat full), 6 steps of B 4 x S 2048
@@ -220,9 +230,7 @@ ROOF_ARCHS = ("hymba-1.5b", "mamba2-2.7b", "phi4-mini-3.8b", "gemma3-4b", "qwen2
 ROOF_STEPS = {"prefill": 20_000, "decode": 500_000}
 ROOF_COUNTS = (1, 2, 3, 4)
 # phase 15: the dense, vision and encoder-decoder families at full width,
-# and their flash_attention shapes timed (FLASH_CASES' last five)
-FAMILY_FLASH = dict(zip(("gemma3_4b_local", "gemma3_4b_global", "phi3_vision_4_2b",
-                         "whisper_base_encoder", "whisper_base_decoder"), FLASH_CASES[-5:]))
+# and their flash_attention shapes (FAMILY_FLASH) timed
 # whisper's plain blocked route cuts the queries into chunks that must
 # divide the length (the reference's blocked route asserts the same):
 # 1,500 frames are no multiple of the config's 1,024, so 500 there
@@ -299,8 +307,8 @@ def ptxas_by_kernel(log):
         dem = subprocess.run([str(tool), *names], capture_output=True, text=True,
                              timeout=60).stdout.splitlines()
         if len(dem) == len(names):
-            names = [re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\(int\)", "", d)
-                     .split("(")[0] for d in dem]
+            names = [re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\((int|bool)\)",
+                            "", d).split("(")[0] for d in dem]
     return {n: tuple(v) for n, v in zip(names, out.values())}
 
 
@@ -1643,7 +1651,9 @@ def time_flash(device, dtype="bfloat16", case=FLASH_PATH):
     (TF32), against the bytes.  Beside it, float32's ``bound_ms_issued``
     counts the three TF32 passes the kernel issues and
     ``bound_ms_cuda_cores`` the work once at the 67 TFLOP/s of float32
-    outside the tensor cores."""
+    outside the tensor cores.  ``library_kernel`` names the kernel SDPA ran
+    (the yardstick), ``library_device_us`` its device µs a launch, from
+    ``torch.profiler``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -1677,9 +1687,12 @@ def time_flash(device, dtype="bfloat16", case=FLASH_PATH):
         bound_ms_cuda_cores=max(ops / FP32_OPS_PER_S, t_bytes) * 1e3)
     reps = 50 if dtype == "bfloat16" else 20
     ms = [cuda_ms(kern, reps), cuda_ms(sdpa, reps), cuda_ms(sdpa, reps), cuda_ms(kern, reps)]
+    # the yardstick by name: the kernel SDPA ran, and its device us a launch
+    lib_kernel, lib_us = top_kernel(device_profile(sdpa))
     return dict(shape=case, dtype=dtype, ms=min(ms[0], ms[3]), ms_turns=[ms[0], ms[3]],
                 plain_ms=cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), 5),
                 library_ms=min(ms[1], ms[2]), library_ms_turns=[ms[1], ms[2]],
+                library_kernel=lib_kernel, library_device_us=lib_us,
                 library_max_abs_vs_kernel=lib_err,
                 bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -1755,6 +1768,37 @@ def profile_model_kernel(fn, names, launched, reps=10):
             if name in k:
                 parts[name] = us / count
     return (sum(parts.values()) if parts else None), parts
+
+
+def device_profile(fn, reps=10, tries=3):
+    """{kernel: (launches listed, device µs in total)} of ``reps`` calls of
+    ``fn`` (after one warm call) under ``torch.profiler``.  A profile that
+    lists no device activity at all (the profiler has returned such
+    sessions now and then, four in a row late in one run) is taken again,
+    ``tries`` times in all; ``{}`` if none lists any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof.key_averages())
+        if kernels:
+            return kernels
+    return {}
+
+
+def top_kernel(kernels):
+    """(name, device µs a listed launch) of the kernel with the most device
+    time in a ``device_profile``; (None, None) when it saw none."""
+    if not kernels:
+        return None, None
+    name, (count, us) = max(kernels.items(), key=lambda kv: kv[1][1])
+    return name, us / count
 
 
 # ---------------------------------------------------------------------------
@@ -3214,6 +3258,8 @@ def main() -> int:
     print(f"  kernels built in {build_s:.3f} s ({'cached' if cached else 'fresh'}) "
           f"-> {_build.library_path().relative_to(ROOT)}; with {FLASH_FAULT} "
           f"(planted fault) in {time.perf_counter() - t0:.3f} s")
+    from repro_torch.kernels import flash_attention as FA
+
     log = _build.library_path().with_suffix(".log").read_text()
     for line in log.splitlines():
         if line.startswith(("$", "compile_s", "build_s")):
@@ -3221,21 +3267,23 @@ def main() -> int:
     ptxas = ptxas_by_kernel(log)
     for fn, (regs, stores, loads) in sorted(ptxas.items()):
         print(f"  ptxas: {fn} registers={regs} spill_stores={stores} spill_loads={loads}")
-    # the bf16 flash kernel (one instantiation a head dim) spills nothing
+    # the bf16 flash kernel spills nothing: a walking and a one-tile
+    # instantiation a head dim, one-tile only at hd 256
+    n_ws = 2 * len(FA.HEAD_DIMS) - 1
     ws = {fn: v for fn, v in ptxas.items() if "flash_kernel_ws" in fn}
-    check(len(ws) == 6 and all(v[1:] == (0, 0) for v in ws.values()),
-          f"flash_kernel_ws: want 6 instantiations without spills, ptxas says {ws}")
+    check(len(ws) == n_ws and all(v[1:] == (0, 0) for v in ws.values()),
+          f"flash_kernel_ws: want {n_ws} instantiations without spills, ptxas says {ws}")
     sass = sass_counts(_build.library_path())
     if sass is None:
         print("  sass: no cuobjdump in the toolkit; tensor-core instructions not counted")
     else:  # both flash kernels must run their products on the tensor cores
-        for name, n_inst in (("flash_kernel_ws", 6), ("flash_kernel_tf32", 6)):
+        for name, n_inst in (("flash_kernel_ws", n_ws), ("flash_kernel_tf32", 6)):
             wg = {k: n for k, (n, _) in sass.items() if name in k}
             check(len(wg) == n_inst and all(n > 0 for n in wg.values()),
                   f"{name} lacks HGMMA/HMMA in its SASS: {wg}")
         # and the bf16 one loads its tiles by TMA
         tma = {k: n for k, (_, n) in sass.items() if "flash_kernel_ws" in k}
-        check(len(tma) == 6 and all(n > 0 for n in tma.values()),
+        check(len(tma) == n_ws and all(n > 0 for n in tma.values()),
               f"flash_kernel_ws lacks UTMALDG in its SASS: {tma}")
         # and the bf16 ssd kernels (C.B^T, chunk states, outputs) theirs
         ssd = {k: n for k, (n, _) in sass.items() if "ssd_" in k and "bfloat16" in k}
@@ -3281,7 +3329,6 @@ def main() -> int:
                    "flash_attention_float32": time_flash(device, "float32"),
                    "ssd_scan": time_ssd(device, "bfloat16"),
                    "ssd_scan_float32": time_ssd(device, "float32")}
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SS
 
     window, softcap, causal = FLASH_PATH[5:]
@@ -3294,9 +3341,15 @@ def main() -> int:
         t["device_us"], t["device_us_per_kernel"] = profile_model_kernel(
             lambda: FA.flash_attention(*fl, causal=causal, window=window, softcap=softcap),
             kerns, lambda: (FA.STATS["flash_attention"],))
+    # granite-8b's prefill (hd 128, GQA group 4): the bf16 kernel beside SDPA,
+    # and its device us a launch
+    t = model_times["flash_attention_granite"] = time_flash(device, "bfloat16", GRANITE_FLASH)
+    window, softcap, causal = GRANITE_FLASH[5:]
+    fl = flash_inputs(GRANITE_FLASH, torch.bfloat16, device, seed=99)
+    t["device_us"], t["device_us_per_kernel"] = profile_model_kernel(
+        lambda: FA.flash_attention(*fl, causal=causal, window=window, softcap=softcap),
+        ("flash_kernel_ws",), lambda: (FA.STATS["flash_attention"],))
     del fl
-    # granite-8b's prefill (hd 128, GQA group 4): the bf16 kernel beside SDPA
-    model_times["flash_attention_granite"] = time_flash(device, "bfloat16", GRANITE_FLASH)
     for name, t in model_times.items():
         print(f"  {name} at {t['shape']} {t.get('dtype', 'bfloat16')}: " + " ".join(
             f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))

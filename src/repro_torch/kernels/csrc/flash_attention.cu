@@ -22,27 +22,43 @@
 // bf16 (the serving type): flash_kernel_ws, FlashAttention-3's shape, both
 // products on the tensor cores in bf16 with float32 accumulation.  A block
 // of three warpgroups (384 threads) owns a query tile of 128 rows of one
-// head.  Blocks are numbered with the head fastest, so the G query heads
-// of one KV head run side by side and share its K/V tiles through L2, then
-// the query tiles longest first (causal), then the batch, so the blocks in
-// flight read one batch row's K/V (all of qwen2-moe-a2.7b's prefill K/V,
-// 64 MB, would not stay in the 50 MB L2).  One block an SM; the hardware
-// hands the next block to whichever SM frees first, which balances the
-// causal tiles better than a persistent grid striding over them.
+// head at a time.  The tiles are numbered with the head fastest, so the G
+// query heads of one KV head run side by side and share its K/V tiles
+// through L2, then the query tiles longest first, then the batch, so the
+// blocks in flight read one batch row's K/V (all of qwen2-moe-a2.7b's
+// prefill K/V, 64 MB, would not stay in the 50 MB L2).
+//   * The grid.  A block's own overhead -- its first loads, its last P.V
+//     alone on the tensor cores, writing O -- was a sixth of a 16-round
+//     block at qwen2-moe-a2.7b's prefill (clock64 traces,
+//     tools/flash_ws_trace.py), so where the tiles allow the grid is
+//     persistent: one block an SM walks tiles, and the producer loads the
+//     next tile's Q and K/V while the consumers finish this one.  Under a
+//     causal mask without a window a walk's item is a pair of tiles of one
+//     head, the long (nq - 1 - i) and the short (i): nq + 1 key tiles
+//     between them whatever i is, so a static stride over the items
+//     balances the blocks.  Without a mask every tile is the same work and
+//     the walk strides over single tiles.  A windowed launch (tiles of
+//     unequal length), one with fewer items than SMs, and hd 256 (two Q
+//     buffers do not fit) get a block a tile, which the hardware hands to
+//     whichever SM frees first, from an instantiation without the walk's
+//     loop (WALK false: 6 % faster than the walking one at hymba's
+//     windowed prefill).
 //   * Warp specialisation.  Warpgroup 0 is the producer: it gives registers
-//     back (setmaxnreg.dec to 24) and one thread issues TMA loads -- the Q
-//     tile once, then K and V tiles of BK keys into a ring of ST stages, K
-//     and V each with a full and an empty mbarrier per stage (full: the
-//     TMA's byte count; empty: one arrival from each consumer warp).
-//     Warpgroups 1 and 2 are consumers (setmaxnreg.inc to 240): each owns
-//     64 of the 128 query rows and reads every K/V tile, so a tile loaded
-//     serves 128 rows.  No thread of a consumer copies anything.
+//     back (setmaxnreg.dec to 40) and one thread issues TMA loads -- each
+//     tile's Q into one of two buffers (one at hd 256), then its K and V
+//     tiles of BK keys into a ring of ST stages that runs on across tiles,
+//     each buffer and stage with a full and an empty mbarrier (full: the
+//     TMA's byte count; empty: the consumers' arrivals).  Warpgroups 1 and
+//     2 are consumers (setmaxnreg.inc to 232): each owns 64 of the 128
+//     query rows and reads every K/V tile, so a tile loaded serves 128
+//     rows.  No thread of a consumer loads anything.
 //   * TMA tensor maps (cuTensorMapEncodeTiled, reached through
-//     cudaGetDriverEntryPoint, so nothing links libcuda) see q, k and v as
-//     4-D (hd, heads, positions, batch); one box is a panel of PW columns
-//     by the tile's rows, written in the 128-, 64- or 32-byte swizzle that
+//     cudaGetDriverEntryPoint, so nothing links libcuda) see q, k, v and o
+//     as 4-D (hd, heads, positions, batch); one box is a panel of PW
+//     columns by the tile's rows, in the 128-, 64- or 32-byte swizzle that
 //     a panel row of 64, 32 or 16 columns takes -- the layout wgmma reads.
-//     Rows past the sequence are zero-filled by the TMA.
+//     Rows past the sequence are zero-filled on loads and not written on
+//     stores.
 //   * S = Q.K^T is wgmma m64nBKk16 with both operands in shared memory,
 //     K-major (rows hd-contiguous); hd 96, 128 and 256 are 3, 2 and 4
 //     panels.  The scale goes on the float32 scores after the product,
@@ -53,9 +69,13 @@
 //   * Online softmax in registers: a thread holds two rows of the
 //     accumulator and a row's columns lie on the 4 threads of a quad (two
 //     shuffles for the max; the sum is reduced once, at the end).  exp is
-//     ex2 of one FFMA in the log2 domain.  A masked score is -inf, so its
-//     p is exactly 0 even while a row has met no unmasked key (the running
-//     max starts at the reference's -1e30).  l sums the float32 p.
+//     2^(one FFMA) in the log2 domain, on the MUFU (ex2.approx).  A round
+//     is not bound by the MUFU but by the tensor cores' issue (below):
+//     sending a share of each tile's exps to the FMA pipes (a range
+//     reduction and a cubic, FlashAttention-4's way off the MUFU) lost or
+//     tied at every share and head dim measured.  A masked score is -inf,
+//     so its p is exactly 0 even while a row has met no unmasked key (the
+//     running max starts at the reference's -1e30).  l sums the float32 p.
 //   * O += P.V is wgmma m64nHDk16 (two m64n128 at hd 256) with P from
 //     registers: the S accumulator of 16 key columns is already the
 //     A-fragment layout, so P is rounded to bf16 pairs in place; V is read
@@ -68,14 +88,27 @@
 //     P_{j-1}.V_{j-1} behind it, wait for S_j alone (wgmma.wait_group 1),
 //     softmax, then wait for P_{j-1}.V_{j-1}.  Named barriers pass a turn
 //     between the two consumers around each issue, so one's products run
-//     while the other does its softmax (ping-pong).  ptxas schedules the
-//     wait for P_{j-1}.V_{j-1} ahead of the softmax's arithmetic (the SASS
-//     shows it there), so inside a warpgroup the softmax does not overlap
-//     that product; the two warpgroups' alternation is the overlap there is.
+//     while the other does its softmax (ping-pong).  Issuing a warpgroup's
+//     16 wgmma takes about as long as its products run (the clock64 traces:
+//     the issue returns when S_j has nearly landed), so the softmax cannot
+//     run under the warpgroup's own P.V whatever the order; ptxas also
+//     places the wait for P_{j-1}.V_{j-1} ahead of the softmax's exps (the
+//     SASS), and pinning it behind them (an mbarrier arrival that reads the
+//     row sums) measured no faster.  The two warpgroups' alternation is the
+//     overlap there is.
+//   * The epilogue: a consumer normalises its rows of O, rounds them to
+//     bf16, writes them over its own rows of the tile's Q buffer (its last
+//     Q.K^T has landed) in the panels' swizzle, and one thread stores them
+//     with a TMA store a panel; it waits for the store to have read them
+//     only after the next tile's first softmax, and then releases the
+//     buffer.  (Writing O straight from registers took 3,000-6,000 clocks
+//     a tile with the tensor cores idle, and waiting for the store at
+//     once 2,000-5,700.)
 //   * No atomics: two calls give bitwise the same output.
-//   Tiles (BK keys, ST stages) and shared memory (Q, then the ring):
-//   hd 16-128 take BK 128, two stages: 20, 40, 80, 120 and 160 KB; hd 256
-//   takes BK 64 (its O accumulator is 128 registers), two stages, 192 KB.
+//   Tiles (BK keys, ST stages) and shared memory (Q buffers, then the
+//   ring): hd 16-128 take BK 128, two stages and two Q buffers: 24, 48, 96,
+//   144 and 192 KB; hd 256 takes BK 64 (its O accumulator is 128
+//   registers), two stages and one Q buffer, 192 KB.
 //
 // float32 (the parity runs, held to 2e-5): flash_kernel_tf32, both
 // products on the tensor cores as a three-pass TF32 split (3xTF32).  One
@@ -130,7 +163,7 @@
 // Both: the output is written once, divided by max(l, 1e-30); the ragged
 // last query and key tiles are masked, so any sequence length is taken;
 // above 48 KB of shared memory the launch opts in with
-// cudaFuncSetAttribute.
+// cudaFuncSetAttribute (the bf16 route once per instantiation and device).
 //
 // C interface, bound with ctypes: pointers and the stream are void*, counts
 // int, scalars float; dtype 0 is float32, 1 bfloat16 (q, k, v and o share
@@ -141,6 +174,7 @@
 // cudaErrorInvalidValue for a head dim or type it does not take (or a
 // tensor map that cuTensorMapEncodeTiled refuses).
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
@@ -228,8 +262,11 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t addr) {
 using bf16 = __nv_bfloat16;
 constexpr int kWsBQ = 128;          // query rows per block: 64 per consumer
 constexpr int kWsThreads = 384;     // a producer warpgroup and two consumers
-constexpr int kProducerRegs = 24;   // each thread starts with 65536 / 384 =
-constexpr int kConsumerRegs = 240;  // 168; 128 * 24 + 256 * 240 = 384 * 168
+// each thread starts with 65536 / 384 = 168; 128 * 40 + 256 * 232 = 384 *
+// 168.  The producer's walk needs 40 (24 spilled); the consumers lost
+// nothing measurable going from 240 to 232.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The tiles' layout in shared memory.  A tile of R rows x HD columns (Q,
@@ -248,9 +285,13 @@ struct Ws {
   static constexpr uint64_t LAYOUT = RB == 128 ? 1 : (RB == 64 ? 2 : 3);
   static constexpr int Q_BYTES = kWsBQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;  // one K or V tile
-  // 1024 bytes of alignment slack, Q, and ST stages of K and V
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * ST * KV_BYTES;
-  static constexpr int NBAR = 1 + 4 * ST;  // Q full; K, V full; K, V empty
+  // two Q buffers where they fit, so that the next tile's Q loads while
+  // this one runs (one at hd 256: there the next Q loads once this tile's
+  // last Q.K^T has landed)
+  static constexpr int QB = 1024 + 2 * Q_BYTES + 2 * ST * KV_BYTES <= 227 * 1024 ? 2 : 1;
+  // 1024 bytes of alignment slack, the Q buffers, and ST stages of K and V
+  static constexpr int SMEM = 1024 + QB * Q_BYTES + 2 * ST * KV_BYTES;
+  static constexpr int NBAR = 2 * QB + 4 * ST;  // Q full, empty; K, V full; K, V empty
   static_assert(HD % 16 == 0 && BK % 16 == 0 && BK <= 256, "wgmma shapes");
   static_assert(ST >= 2, "a ring of at least two stages");
   static_assert(SMEM <= 227 * 1024, "a block's shared memory");
@@ -448,6 +489,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(c3)
       : "memory");
 }
+// a PW x rows box of shared memory at src to a 4-D tensor map (rows past
+// the tensor are not written), in the bulk group of the issuing thread
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0,
+                                          int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the bulk groups have read their shared memory (the writes to global
+// memory complete on their own, before the kernel does)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
 // named barriers 1 and 2 pass the turn between the consumers: consumer c
 // waits on 1 + c, and hands the turn on by arriving at the other's
 __device__ __forceinline__ void turn_wait(int c) {
@@ -456,11 +515,43 @@ __device__ __forceinline__ void turn_wait(int c) {
 __device__ __forceinline__ void turn_pass(int c) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - c) : "memory");
 }
+// named barrier 3 + c: the 128 threads of consumer c
+__device__ __forceinline__ void consumer_sync(int c) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + c) : "memory");
+}
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+
+#ifdef REPRO_FLASH_WS_TRACE
+// clock64 stamps of the consumers' rounds (tools/flash_ws_trace.py): the
+// first four blocks of the grid and four from its middle, each consumer,
+// rounds 0..kTrRounds-2, kTrEvents stamps a round; round kTrRounds-1
+// holds the consumer's start (0) and the end of its epilogue (1)
+constexpr int kTrBlocks = 8, kTrRounds = 40, kTrEvents = 10;
+__device__ unsigned long long ws_trace[kTrBlocks][2][kTrRounds][kTrEvents];
+__device__ __forceinline__ int ws_trace_slot() {
+  const int mid = static_cast<int>(blockIdx.x) - static_cast<int>(gridDim.x / 2);
+  return blockIdx.x < 4 ? static_cast<int>(blockIdx.x) : (mid >= 0 && mid < 4 ? 4 + mid : -1);
+}
+// thread 0 of a consumer warpgroup stores the clock, predicated (no branch)
+__device__ __forceinline__ void ws_stamp(int slot, int c, int j, int ev) {
+  const int on = slot >= 0 && j < kTrRounds && (threadIdx.x & 127) == 0;  // kTrRounds - 1: start, end
+  unsigned long long* p = &ws_trace[on ? slot : 0][c][on ? j : 0][ev];
+  asm volatile(
+      "{\n.reg .pred q;\n.reg .u64 t;\nsetp.ne.s32 q, %1, 0;\n"
+      "mov.u64 t, %%clock64;\n@q st.global.u64 [%0], t;\n}\n" ::"l"(p),
+      "r"(on)
+      : "memory");
+}
+#define WS_STAMP(j, ev) ws_stamp(tr, c, (j), (ev))
+#else
+#define WS_STAMP(j, ev) \
+  do {                  \
+  } while (0)
+#endif
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -496,11 +587,12 @@ __device__ __forceinline__ void ws_pv(float (&acc)[C::HD / 2],
 // The softmax of one S tile in place (S -> p, unrounded), with the running
 // max m (in score units) and this thread's share of the running sum l.
 // alpha is the factor O is to be rescaled by.  Scores x are s * scale, or
-// softcap * tanh(s * scale / softcap); exp(x - m) is ex2 of one FFMA with
-// sl2 = log2(e) * (scale, or 1 under softcap).  Softcap and the masks (an
-// edge tile of the consumer's rows r0..r0+63 only) are passes of their
-// own behind uniform branches, so an interior tile costs a max, an FFMA,
-// an ex2 and an add a score; maxima and sums run in four partial chains.
+// softcap * tanh(s * scale / softcap); exp(x - m) is 2^(one FFMA) with
+// sl2 = log2(e) * (scale, or 1 under softcap), on the MUFU (ex2).
+// Softcap and the masks (an edge tile of the consumer's rows
+// r0..r0+63 only) are passes of their own behind uniform branches, so an
+// interior tile costs a max, an FFMA, an exp and an add a score; maxima
+// and sums run in four partial chains.
 template <class C>
 __device__ __forceinline__ void ws_softmax(float (&s)[C::BK / 2], float (&m)[2],
                                            float (&l)[2], float (&alpha)[2],
@@ -554,7 +646,8 @@ __device__ __forceinline__ void ws_softmax(float (&s)[C::BK / 2], float (&m)[2],
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
-    const float p = ex2(fmaf(s[i], sl2, -mb[r]));  // exactly 0 where masked
+    const float x = fmaf(s[i], sl2, -mb[r]);
+    const float p = ex2(x);  // 0 where masked
     s[i] = p;
     sum[r][(i >> 2) & 3] += p;
   }
@@ -583,48 +676,145 @@ __device__ __forceinline__ void ws_pack(uint32_t (&pa)[C::BK / 16][4],
       pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
-// One block per (head, query tile of 128 rows, batch), numbered with the
-// head fastest (the G heads of a KV head side by side, sharing its K/V
-// tiles through L2), then the query tiles longest first (causal), then
-// the batch, so the blocks in flight read one batch row's K/V; the
-// hardware hands the next block to whichever SM frees first.  In a
-// consumer, warp w of the warpgroup owns rows 16w..16w+15 of the
-// consumer's 64 and each thread two of them (row0, row0 + 8) with the
-// wgmma accumulator layout: element i of a 64 x N accumulator is row
-// row0 + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + 2 * (lane & 3) + (i & 1).
-template <int HD, int BK, int ST>
-__global__ void __launch_bounds__(kWsThreads, 1) flash_kernel_ws(
-    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int Sq, int Skv,
-    int H, int KVH, int causal, int window, float scale, float softcap) {
-  using C = Ws<HD, BK, ST>;
-  extern __shared__ __align__(1024) unsigned char ws_smem[];
-  __shared__ __align__(8) uint64_t ws_bar[C::NBAR];
-  const uint32_t sQ = (smem_u32(ws_smem) + 1023u) & ~1023u;
-  // stage s: K at sQ + Q_BYTES + 2s tiles, V the tile after it
-  auto sK = [&](int s) { return sQ + C::Q_BYTES + 2 * s * C::KV_BYTES; };
-  const uint32_t bar0 = smem_u32(ws_bar), full_q = bar0;
-  auto full_k = [&](int s) { return bar0 + 8 * (1 + s); };
-  auto full_v = [&](int s) { return bar0 + 8 * (1 + ST + s); };
-  auto empty_k = [&](int s) { return bar0 + 8 * (1 + 2 * ST + s); };
-  auto empty_v = [&](int s) { return bar0 + 8 * (1 + 3 * ST + s); };
-
+// A block walks tiles of 128 query rows of one (batch, head).  With
+// paired set (causal, no window), item i of the walk is a pair of tiles of
+// one (batch, head): the long one (nq - 1 - i) and then the short one
+// (i), nq + 1 key tiles between them whatever i is, so every item is the
+// same work and a static stride over them balances the blocks.  Otherwise
+// an item is one tile, the longest first; a grid with a block an item
+// (the windowed and hd-256 launches) hands items to SMs as they free.
+// Items are numbered with the head fastest (the G heads of a KV head side
+// by side, sharing its K/V tiles through L2), then i, then the batch.
+struct WsTile {
+  int b, h, q0, kt_begin, n;  // n key tiles from kt_begin (n <= 0: none)
+};
+// the k-th tile of this block's walk; false past its end.  q0 < 0 marks
+// the empty second half of an odd nq's middle pair.  (The kernel's
+// arguments come straight from its parameter space: nothing of the walk
+// stays in registers between tiles.)
+template <int BK>
+__device__ __forceinline__ bool ws_tile(int Sq, int Skv, int H, int B, int causal,
+                                        int window, int paired, int k, WsTile& t) {
   const int nq = (Sq + kWsBQ - 1) / kWsBQ;
-  const int h = blockIdx.x % H;
-  const int q0 = (nq - 1 - blockIdx.x / H % nq) * kWsBQ;
-  const int b = blockIdx.x / (H * nq);
-  const int kvh = h / (H / KVH);
-  // the KV tiles that can hold an unmasked key of this block's rows (the
+  int qt;
+  if (paired) {
+    const int np = (nq + 1) / 2;
+    const int item = blockIdx.x + (k >> 1) * gridDim.x;
+    if (item >= B * H * np) return false;
+    const int i = item / H % np;
+    t.h = item % H;
+    t.b = item / (H * np);
+    qt = (k & 1) ? i : nq - 1 - i;
+    if ((k & 1) && qt == nq - 1 - i) {
+      t.q0 = -1, t.n = 0;
+      return true;
+    }
+  } else {
+    const int item = blockIdx.x + k * gridDim.x;
+    if (item >= B * H * nq) return false;
+    t.h = item % H;
+    qt = nq - 1 - item / H % nq;
+    t.b = item / (H * nq);
+  }
+  t.q0 = qt * kWsBQ;
+  // the KV tiles that can hold an unmasked key of the tile's rows (the
   // TPU kernel's should_run)
-  const int q_last = min(q0 + kWsBQ, Sq) - 1;
+  const int q_last = min(t.q0 + kWsBQ, Sq) - 1;
   int kt_end = (Skv + BK - 1) / BK;
   if (causal) kt_end = min(kt_end, q_last / BK + 1);
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
-  const int n = kt_end - kt_begin;
+  t.kt_begin = 0;
+  if (window > 0 && t.q0 - window + 1 > 0) t.kt_begin = (t.q0 - window + 1) / BK;
+  t.n = kt_end - t.kt_begin;
+  return true;
+}
+
+// A consumer's rows of O for a tile: normalised by the row sums, rounded
+// to bf16 and written over its own rows of the tile's Q buffer (its last
+// Q.K^T has landed) in the panels' swizzle; then thread 0 of the consumer
+// stores them with one TMA store a panel (rows past Sq are not written).
+// The caller releases the Q buffer once the store has read it.  A warp's
+// 4-byte writes land in 8 rows of one 16-byte column, which the swizzle
+// spreads over the banks.
+template <class C>
+__device__ __forceinline__ void ws_store_o(const CUtensorMap* to, const float (&acc)[C::HD / 2],
+                                           const float (&l_part)[2], uint32_t sQc, int c,
+                                           int warp, int lane, const WsTile& t) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_part[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / fmaxf(l, 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < C::HD / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    const int row = 16 * warp + (lane >> 2) + 8 * r, col = 8 * (i >> 2) + 2 * (lane & 3);
+    const uint32_t off = row * C::RB + (col % C::PW) * 2;
+    const uint32_t dst = sQc + (col / C::PW) * kWsBQ * C::RB + (off ^ ((off >> 3) & (C::RB - 16)));
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
+                 "r"(pack_bf16(acc[i] * inv[r], acc[i + 1] * inv[r]))
+                 : "memory");
+  }
+  fence_proxy_async();  // the writes, visible to the TMA's async proxy
+  consumer_sync(c);
+  if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int p = 0; p < C::NP; ++p)
+      tma_store(to, sQc + p * kWsBQ * C::RB, p * C::PW, t.h, t.q0 + 64 * c, t.b);
+    bulk_commit();
+  }
+}
+// the last tile's TMA store has read its Q buffer: release the buffer
+__device__ __forceinline__ void ws_release_q(uint32_t empty_q) {
+  if ((threadIdx.x & 127) == 0) {
+    bulk_wait_read();
+    mbar_arrive(empty_q);
+  }
+}
+
+// One block per SM (or per item, if fewer), three warpgroups: a producer
+// and two consumers of 64 query rows each.  In a consumer, warp w of the
+// warpgroup owns rows 16w..16w+15 of the consumer's 64 and each thread two
+// of them (row0, row0 + 8) with the wgmma accumulator layout: element i
+// of a 64 x N accumulator is row row0 + 8 * ((i >> 1) & 1), column
+// 8 * (i >> 2) + 2 * (lane & 3) + (i & 1).  The producer and both
+// consumers walk the same tiles and count the same rounds (g, across
+// tiles, for the K/V ring's stages and phases) and the same tiles with
+// keys (u, for the Q buffers'); the producer loads the next tile's Q and
+// K/V while the consumers finish this one.  A tile without key tiles (a
+// window past Skv) loads nothing and its rows of O are zeros.
+template <int HD, int BK, int ST, bool WALK>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_kernel_ws(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+    bf16* __restrict__ o, int Sq, int Skv, int H, int KVH, int B, int causal, int window,
+    int paired, float scale, float softcap) {
+  using C = Ws<HD, BK, ST>;
+  static_assert(!WALK || C::QB == 2, "a walk loads the next Q while this tile runs");
+  extern __shared__ __align__(1024) unsigned char ws_smem[];
+  __shared__ __align__(8) uint64_t ws_bars[C::NBAR];
+  const uint32_t base = (smem_u32(ws_smem) + 1023u) & ~1023u;
+  const uint32_t bar0 = smem_u32(ws_bars);
+  // Q buffer u % QB, then stage s's K tile (V is the tile after it)
+  auto sQ = [&](int u) { return base + (u % C::QB) * C::Q_BYTES; };
+  auto sK = [&](int s) { return base + C::QB * C::Q_BYTES + 2 * s * C::KV_BYTES; };
+  // mbarriers: Q full and Q empty for each Q buffer; K full, V full, K
+  // empty, V empty for each stage
+  auto full_q = [&](int u) { return bar0 + 8 * (u % C::QB); };
+  auto empty_q = [&](int u) { return bar0 + 8 * (C::QB + u % C::QB); };
+  auto full_k = [&](int s) { return bar0 + 8 * (2 * C::QB + s); };
+  auto full_v = [&](int s) { return bar0 + 8 * (2 * C::QB + ST + s); };
+  auto empty_k = [&](int s) { return bar0 + 8 * (2 * C::QB + 2 * ST + s); };
+  auto empty_v = [&](int s) { return bar0 + 8 * (2 * C::QB + 3 * ST + s); };
+#define WS_TILE(k, t) ws_tile<BK>(Sq, Skv, H, B, causal, window, paired, (k), (t))
 
   if (threadIdx.x == 0) {
-    mbar_init(full_q, 1);
+    for (int q = 0; q < C::QB; ++q) {
+      mbar_init(full_q(q), 1);
+      mbar_init(empty_q(q), 2);  // one arrival from each consumer's store
+    }
     for (int s = 0; s < ST; ++s) {
       mbar_init(full_k(s), 1);
       mbar_init(full_v(s), 1);
@@ -637,124 +827,183 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_kernel_ws(
 
   if (threadIdx.x < 128) {  // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x == 0 && n > 0) {
-      mbar_expect_tx(full_q, C::Q_BYTES);
-      for (int p = 0; p < C::NP; ++p)
-        tma_load(sQ + p * kWsBQ * C::RB, &tq, full_q, p * C::PW, h, q0, b);
-      for (int j = 0; j < n; ++j) {
-        const int s = j % ST, ph = (j / ST) & 1;
-        const int k0 = (kt_begin + j) * BK;
-        mbar_wait(empty_k(s), ph ^ 1);
-        mbar_expect_tx(full_k(s), C::KV_BYTES);
+    if (threadIdx.x == 0) {
+      WsTile t;
+      for (int k = 0, g = 0, u = 0; (WALK || k == 0) && WS_TILE(k, t); ++k) {
+        if (t.n <= 0) continue;
+        const int kvh = t.h / (H / KVH);
+        mbar_wait(empty_q(u), ((u / C::QB) & 1) ^ 1);
+        mbar_expect_tx(full_q(u), C::Q_BYTES);
         for (int p = 0; p < C::NP; ++p)
-          tma_load(sK(s) + p * BK * C::RB, &tk, full_k(s), p * C::PW, kvh, k0, b);
-        mbar_wait(empty_v(s), ph ^ 1);
-        mbar_expect_tx(full_v(s), C::KV_BYTES);
-        for (int p = 0; p < C::NP; ++p)
-          tma_load(sK(s) + C::KV_BYTES + p * BK * C::RB, &tv, full_v(s), p * C::PW,
-                   kvh, k0, b);
+          tma_load(sQ(u) + p * kWsBQ * C::RB, &tq, full_q(u), p * C::PW, t.h, t.q0, t.b);
+        ++u;
+        for (int j = 0; j < t.n; ++j, ++g) {
+          const int s = g % ST, ph = (g / ST) & 1;
+          const int k0 = (t.kt_begin + j) * BK;
+          mbar_wait(empty_k(s), ph ^ 1);
+          mbar_expect_tx(full_k(s), C::KV_BYTES);
+          for (int p = 0; p < C::NP; ++p)
+            tma_load(sK(s) + p * BK * C::RB, &tk, full_k(s), p * C::PW, kvh, k0, t.b);
+          mbar_wait(empty_v(s), ph ^ 1);
+          mbar_expect_tx(full_v(s), C::KV_BYTES);
+          for (int p = 0; p < C::NP; ++p)
+            tma_load(sK(s) + C::KV_BYTES + p * BK * C::RB, &tv, full_v(s), p * C::PW,
+                     kvh, k0, t.b);
+        }
       }
     }
   } else {  // consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int c = (threadIdx.x >> 7) - 1;
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-    const int r0 = q0 + 64 * c;
-    const int row0 = r0 + 16 * warp + (lane >> 2);
     const int col0 = 2 * (lane & 3);
-    const uint32_t sQc = sQ + 64 * c * C::RB;
     const float sl2 = (softcap > 0.f ? 1.f : scale) * kLog2e;
+#ifdef REPRO_FLASH_WS_TRACE
+    const int slot = ws_trace_slot();
+    ws_stamp(slot, c, kTrRounds - 1, 0);
+#endif
 
     float acc[HD / 2];
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
-    float m_run[2] = {kNegInf, kNegInf};  // running max of rows row0, row0 + 8
-    float l_part[2] = {0.f, 0.f};  // this thread's share of the running sum
-    float alpha[2];
+    float m_run[2], l_part[2], alpha[2];
     float s[BK / 2];
     uint32_t pa[BK / 16][4];
-
-    if (n > 0) {
-      if (c == 1) turn_pass(c);  // consumer 0 takes the first turn
-      mbar_wait(full_q, 0);
-      // S_0
-      mbar_wait(full_k(0), 0);
-      turn_wait(c);
-      wg_fence();
-      ws_qk<C>(s, sQc, sK(0));
-      wg_commit();
-      turn_pass(c);
-      wg_wait<0>();
-      fence_regs(s);
-      if (lane == 0) mbar_arrive(empty_k(0));
-      ws_softmax<C>(s, m_run, l_part, alpha, kt_begin * BK, r0, row0, col0, Skv,
-                    causal, window, scale, softcap, sl2);
-      for (int j = 1; j < n; ++j) {
-        // P_{j-1}, in S's registers since the last softmax, is packed to
-        // bf16 first: the last P.V has landed, so nothing in flight reads
-        // pa.  Then S_j = Q.K_j^T goes in, O is rescaled by the last alpha
-        // while it runs, and P_{j-1}.V_{j-1} goes in behind it; the softmax
-        // of S_j can run while P_{j-1}.V_{j-1} is on the tensor cores.
-        const int st = j % ST, sp = (j - 1) % ST;
-        mbar_wait(full_k(st), (j / ST) & 1);
-        ws_pack<C>(pa, s);
+    WsTile t;
+    bool more = WS_TILE(0, t);
+    int stored = -1;  // the Q buffer whose O store has not been waited for
+    if (c == 1) turn_pass(c);  // consumer 0 takes the first turn
+    for (int k = 0, g = 0, u = 0; more; ++k, more = WALK && WS_TILE(k, t)) {
+#ifdef REPRO_FLASH_WS_TRACE
+      const int tr = k == 0 ? slot : -1;  // the block's first tile's rounds
+#endif
+      const int n = t.n;
+      const int r0 = t.q0 + 64 * c;
+      const int row0 = r0 + 16 * warp + (lane >> 2);
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+      m_run[0] = m_run[1] = kNegInf;  // running max of rows row0, row0 + 8
+      l_part[0] = l_part[1] = 0.f;    // this thread's share of the running sum
+      if (n > 0) {
+        const uint32_t sQc = sQ(u) + 64 * c * C::RB;
+        const int qph = (u / C::QB) & 1, qu = u;
+        ++u;
+        WS_STAMP(0, 0);
+        mbar_wait(full_q(qu), qph);
+        // S_0
+        mbar_wait(full_k(g % ST), (g / ST) & 1);
+        WS_STAMP(0, 1);
         turn_wait(c);
+        WS_STAMP(0, 2);
         wg_fence();
-        ws_qk<C>(s, sQc, sK(st));
+        ws_qk<C>(s, sQc, sK(g % ST));
         wg_commit();
+        turn_pass(c);
+        WS_STAMP(0, 4);
+        wg_wait<0>();
+        fence_regs(s);
+        WS_STAMP(0, 5);
+        if (lane == 0) mbar_arrive(empty_k(g % ST));
+        ws_softmax<C>(s, m_run, l_part, alpha, t.kt_begin * BK, r0, row0, col0, Skv,
+                      causal, window, scale, softcap, sl2);
+        // the last tile's O store has long read its Q buffer by now
+        if (stored >= 0) ws_release_q(empty_q(stored));
+        stored = -1;
+        WS_STAMP(0, 6);
+        for (int j = 1; j < n; ++j) {
+          // P_{j-1}, in S's registers since the last softmax, is packed to
+          // bf16 first: the last P.V has landed, so nothing in flight reads
+          // pa.  Then S_j = Q.K_j^T goes in, O is rescaled by the last alpha
+          // while it runs, and P_{j-1}.V_{j-1} goes in behind it.
+          const int gj = g + j, st = gj % ST, sp = (gj - 1) % ST;
+          WS_STAMP(j, 0);
+          mbar_wait(full_k(st), (gj / ST) & 1);
+          WS_STAMP(j, 1);
+          ws_pack<C>(pa, s);
+          turn_wait(c);
+          WS_STAMP(j, 2);
+          wg_fence();
+          ws_qk<C>(s, sQc, sK(st));
+          wg_commit();
+          WS_STAMP(j, 3);
+          ws_rescale<C>(acc, alpha);
+          mbar_wait(full_v(sp), ((gj - 1) / ST) & 1);
+          fence_regs(acc);
+          wg_fence();
+          ws_pv<C>(acc, pa, sK(sp) + C::KV_BYTES);
+          wg_commit();
+          turn_pass(c);
+          WS_STAMP(j, 4);
+          wg_wait<1>();  // S_j has landed; P_{j-1}.V_{j-1} may still run
+          fence_regs(s);
+          WS_STAMP(j, 5);
+          if (lane == 0) mbar_arrive(empty_k(st));
+          ws_softmax<C>(s, m_run, l_part, alpha, (t.kt_begin + j) * BK, r0, row0, col0,
+                        Skv, causal, window, scale, softcap, sl2);
+          fence_regs(s);  // the softmax is done before the wait below
+          WS_STAMP(j, 6);
+          wg_wait<0>();
+          fence_regs(acc);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)  // P_{j-1} was read until here
+#pragma unroll
+            for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[kk][e])::"memory");
+          WS_STAMP(j, 7);
+          if (lane == 0) mbar_arrive(empty_v(sp));
+          WS_STAMP(j, 8);
+        }
+        // P_{n-1}.V_{n-1}
+        const int sp = (g + n - 1) % ST;
+        WS_STAMP(n, 0);
+        ws_pack<C>(pa, s);
         ws_rescale<C>(acc, alpha);
-        mbar_wait(full_v(sp), ((j - 1) / ST) & 1);
+        mbar_wait(full_v(sp), ((g + n - 1) / ST) & 1);
+        turn_wait(c);
+        WS_STAMP(n, 2);
         fence_regs(acc);
         wg_fence();
         ws_pv<C>(acc, pa, sK(sp) + C::KV_BYTES);
         wg_commit();
-        turn_pass(c);
-        wg_wait<1>();  // S_j has landed; P_{j-1}.V_{j-1} may still run
-        fence_regs(s);
-        if (lane == 0) mbar_arrive(empty_k(st));
-        ws_softmax<C>(s, m_run, l_part, alpha, (kt_begin + j) * BK, r0, row0, col0,
-                      Skv, causal, window, scale, softcap, sl2);
-        fence_regs(s);  // the softmax is done before the wait below
+        // consumer 1 passes no turn after the block's last products: a walk
+        // has at most one tile without keys in a row (an odd nq's middle)
+        WsTile x;
+        if (c == 0 || (WALK && ((WS_TILE(k + 1, x) && x.n > 0) ||
+                                (WS_TILE(k + 2, x) && x.n > 0))))
+          turn_pass(c);
+        WS_STAMP(n, 4);
         wg_wait<0>();
         fence_regs(acc);
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)  // P_{j-1} was read until here
+        for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
           for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[kk][e])::"memory");
         if (lane == 0) mbar_arrive(empty_v(sp));
+        WS_STAMP(n, 7);
+        g += n;
       }
-      // P_{n-1}.V_{n-1}; consumer 1 passes no turn after its last products
-      const int sp = (n - 1) % ST;
-      ws_pack<C>(pa, s);
-      ws_rescale<C>(acc, alpha);
-      mbar_wait(full_v(sp), ((n - 1) / ST) & 1);
-      turn_wait(c);
-      fence_regs(acc);
-      wg_fence();
-      ws_pv<C>(acc, pa, sK(sp) + C::KV_BYTES);
-      wg_commit();
-      if (c == 0) turn_pass(c);
-      wg_wait<0>();
-      fence_regs(acc);
-    }
-
-    float inv[2];
+      if (n > 0) {
+        ws_store_o<C>(&to, acc, l_part, sQ(u - 1) + 64 * c * C::RB, c, warp, lane, t);
+        stored = u - 1;
+      } else if (t.q0 >= 0) {
+        // a tile without keys: zeros, written directly
+        const long q_step = (long)H * HD;
+        bf16* ob = o + ((long)t.b * Sq * H + t.h) * HD;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_part[r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      inv[r] = 1.f / fmaxf(l, 1e-30f);
+        for (int i = 0; i < HD / 2; i += 2) {
+          const int qi = row0 + 8 * ((i >> 1) & 1);
+          if (qi < Sq)
+            *reinterpret_cast<__nv_bfloat162*>(ob + qi * q_step + 8 * (i >> 2) + col0) =
+                __floats2bfloat162_rn(0.f, 0.f);
+        }
+      }
+#ifdef REPRO_FLASH_WS_TRACE
+      if (k == 0) ws_stamp(slot, c, kTrRounds - 1, 1);
+#endif
     }
-    const long q_step = (long)H * HD;
-    bf16* ob = o + ((long)b * Sq * H + h) * HD;
-#pragma unroll
-    for (int i = 0; i < HD / 2; i += 2) {
-      const int r = (i >> 1) & 1, qi = row0 + 8 * r;
-      if (qi < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + qi * q_step + 8 * (i >> 2) + col0) =
-            __floats2bfloat162_rn(acc[i] * inv[r], acc[i + 1] * inv[r]);
-    }
+#undef WS_TILE
+    // the last O store has read its shared memory before the block ends
+    if ((threadIdx.x & 127) == 0) bulk_wait_read();
+#ifdef REPRO_FLASH_WS_TRACE
+    ws_stamp(slot, c, kTrRounds - 1, 2);
+#endif
   }
 }
 
@@ -805,23 +1054,56 @@ bool ws_map(CUtensorMap* map, const void* base, int B, int S, int heads, int row
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the card's SMs into *n, read once per device (cached for the first 32)
+cudaError_t sm_count(int dev, int* n) {
+  static std::atomic<int> cached[32];
+  *n = dev >= 0 && dev < 32 ? cached[dev].load(std::memory_order_acquire) : 0;
+  if (*n > 0) return cudaSuccess;
+  const cudaError_t err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (*n <= 0) return cudaErrorInvalidValue;
+  if (dev < 32) cached[dev].store(*n, std::memory_order_release);
+  return cudaSuccess;
+}
+
 template <int HD, int BK, int ST>
 cudaError_t launch_ws(const void* q, const void* k, const void* v, void* o, int B,
                       int Sq, int Skv, int H, int KVH, int causal, int window,
                       float scale, float softcap, cudaStream_t st) {
   using C = Ws<HD, BK, ST>;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, to;
   if (!ws_map<C>(&tq, q, B, Sq, H, kWsBQ) || !ws_map<C>(&tk, k, B, Skv, KVH, BK) ||
-      !ws_map<C>(&tv, v, B, Skv, KVH, BK))
+      !ws_map<C>(&tv, v, B, Skv, KVH, BK) || !ws_map<C>(&to, o, B, Sq, H, 64))
     return cudaErrorInvalidValue;
-  auto kern = flash_kernel_ws<HD, BK, ST>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = sm_count(dev, &sms);
   if (err != cudaSuccess) return err;
-  const long blocks = (long)(Sq + kWsBQ - 1) / kWsBQ * H * B;
-  kern<<<(unsigned)blocks, kWsThreads, C::SMEM, st>>>(
-      tq, tk, tv, static_cast<bf16*>(o), Sq, Skv, H, KVH, causal, window, scale,
-      softcap);
+  // The walk: pairs of tiles (causal without a window), or single tiles
+  // of equal length (no mask), a block an SM, where there are more items
+  // than SMs; otherwise a block a tile, from an instantiation without the
+  // walk's loop (6 % faster there at hymba's windowed prefill), whose
+  // tiles of unequal length the hardware's block scheduler balances.  hd
+  // 256 takes a block a tile: two Q buffers do not fit.
+  const long nq = (Sq + kWsBQ - 1) / kWsBQ;
+  const long pairs = (nq + 1) / 2 * H * B, tiles = nq * H * B;
+  constexpr bool kWalks = C::QB == 2;
+  const int paired = kWalks && causal && window <= 0 && pairs >= sms;
+  const bool walk = paired || (kWalks && !causal && window <= 0 && tiles > sms);
+  auto kern = walk ? flash_kernel_ws<HD, BK, ST, kWalks>
+                   : flash_kernel_ws<HD, BK, ST, false>;
+  // the shared-memory opt-in once per instantiation (this function's own
+  // statics) and device, not on every call
+  static std::atomic<unsigned> opted[2];  // a bit per device
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(opted[walk].load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return err;
+    opted[walk].fetch_or(bit, std::memory_order_release);
+  }
+  kern<<<(unsigned)(walk ? sms : tiles), kWsThreads, C::SMEM, st>>>(
+      tq, tk, tv, to, static_cast<bf16*>(o), Sq, Skv, H, KVH, B, causal, window, paired,
+      scale, softcap);
   return cudaGetLastError();
 }
 
@@ -1366,5 +1648,17 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                        scale, softcap, st);
   return cudaErrorInvalidValue;
 }
+
+#ifdef REPRO_FLASH_WS_TRACE
+// the consumers' clock64 stamps (kTrBlocks x 2 x kTrRounds x kTrEvents
+// uint64, 0 where nothing was stamped) into host memory, then zeroed
+int flash_attention_trace(void* host, long long bytes) {
+  if (bytes != (long long)sizeof(ws_trace)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaMemcpyFromSymbol(host, ws_trace, sizeof(ws_trace));
+  if (err != cudaSuccess) return err;
+  static unsigned long long zeros[sizeof(ws_trace) / 8];
+  return cudaMemcpyToSymbol(ws_trace, zeros, sizeof(ws_trace));
+}
+#endif
 
 }  // extern "C"

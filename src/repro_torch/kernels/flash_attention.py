@@ -25,10 +25,16 @@ head dim of :data:`HEAD_DIMS` on both:
   the tensor cores (``wgmma``, bf16 in, float32 accumulation, P rounded
   to bf16 in registers for P·V), S_j issued beside P_{j-1}·V_{j-1}, and
   named barriers pass the turn between them so one's products run
-  beside the other's softmax.  Key tiles are 128 (64 at hd 256); shared
-  memory per block is Q and two stages of K and V: 20, 40, 80, 120, 160
-  and 192 KB at hd 16, 32, 64, 96, 128 and 256.  No atomics: two calls
-  give the same bits.
+  beside the other's softmax; every exp on the MUFU.  Where the tiles
+  allow (a causal mask without a window, or no mask, and more tile pairs
+  than SMs) the grid is persistent: a block an SM walks pairs of a long and a
+  short causal tile, or equal tiles, loading the next tile's Q and K/V
+  while it finishes this one; otherwise a block takes one tile.  O is
+  written into the tile's Q buffer and leaves by TMA stores.  Key tiles
+  are 128 (64 at hd 256); shared memory per block is two Q buffers (one
+  at hd 256) and two stages of K and V: 24, 48, 96, 144, 192 and 192 KB
+  at hd 16, 32, 64, 96, 128 and 256.  No atomics: two calls give the
+  same bits.
 * float32 runs ``flash_kernel_tf32``, both products on the tensor cores
   as a three-pass TF32 split: each operand x becomes hi = tf32(x) and
   lo = tf32(x − hi), and a product is lo·hi + hi·lo + hi·hi in float32

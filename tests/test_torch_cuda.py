@@ -220,6 +220,13 @@ def test_fleet_stages_through_the_batch_kernel(device):
                                    (4, 2048, 8, 4, 256, 0, 0.0, True),
                                    (4, 2048, 32, 32, 96, 0, 0.0, True),
                                    (8, 1500, 8, 8, 64, 0, 0.0, False),
+                                   # their shapes small: hd 96 at G 1, causal; hd 64
+                                   # non-causal, S no multiple of 128
+                                   (1, 300, 4, 4, 96, 0, 0.0, True),
+                                   (2, 300, 8, 8, 64, 0, 0.0, False),
+                                   # causal with enough tile pairs to fill the card
+                                   # and an odd tile count: the middle tile alone
+                                   (4, 1408, 32, 8, 128, 0, 0.0, True),
                                    # steep scores: q and k x 3 (score std about 9)
                                    (1, 256, 4, 2, 64, 0, 0.0, True, 3.0),
                                    (1, 300, 4, 2, 128, 0, 0.0, False, 3.0),
@@ -254,10 +261,15 @@ def test_flash_attention_kernel_matches_plain(device, shape, dtype, tol):
 
 @pytest.mark.parametrize("shape", [(4, 2048, 16, 16, 128, 0, True),
                                    (1, 2113, 16, 4, 128, 300, True),
-                                   (1, 300, 4, 2, 64, 0, False)])
+                                   (1, 300, 4, 2, 64, 0, False),
+                                   (4, 2048, 32, 32, 96, 0, True),
+                                   (8, 1500, 8, 8, 64, 0, False),
+                                   (4, 1408, 32, 8, 128, 0, True)])
 def test_flash_attention_bf16_launches_are_bitwise_equal(device, shape):
     """No atomics: two launches of the bf16 kernel on the same inputs give
-    the same bits."""
+    the same bits, whichever block a tile lands in (four of these shapes
+    walk tiles persistently, the windowed one and the small one take a
+    block a tile)."""
     from repro_torch.kernels import flash_attention as FA
 
     B, S, H, KVH, hd, window, causal = shape

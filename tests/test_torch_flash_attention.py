@@ -231,6 +231,8 @@ WS_CASES = [  # (B, S, H, KVH, hd, window, softcap, causal)
     (1, 1000, 16, 4, 128, 0, 0.0, True),
     (1, 300, 4, 4, 256, 0, 0.0, True),
     (2, 300, 8, 2, 256, 100, 20.0, True),
+    (1, 300, 4, 4, 96, 0, 0.0, True),  # hd 96, G 1 (phi-3-vision's prefill)
+    (2, 300, 8, 8, 64, 0, 0.0, False),  # hd 64 non-causal, S no multiple of 128 (whisper)
 ]
 WS_BQ = 128  # query rows of a block: two consumers of 64
 
