@@ -67,7 +67,19 @@ the counts near ``model_flops``, each bound at most the time the step
 took in this run, the train arguments within its measured peak; then
 prefill and decode dry-runs of five archs feed ``RooflinePerfModel``,
 which drives ``EcoSched(engine="torch")`` on the paper's H100 node
-(``roofline_sched_h100_node``) against ``engine="vector"``.
+(``roofline_sched_h100_node``) against ``engine="vector"``.  Training
+over ranks (phase 16, ``train_dp_granite_reduced_cards``):
+``tests/test_multidevice.py``'s elastic scenario at model_par 1 runs on
+``min(device_count, 4)`` cards, one process each over NCCL (world size 1
+on one card) through ``Trainer.run()``, against the one-process
+``Trainer`` on card 0 (world size 1 bit for bit; more ranks every step's
+loss within rel. 1e-5), then, on several cards, rescales onto as many
+other cards; with one card, also on 2 ranks of it over gloo where gloo
+carries the step's collectives on CUDA tensors (else the refused
+collective is printed); each rank's collectives' µs per step, step s and
+peak memory are printed; then ``repro_torch.launch.coschedule``'s main
+runs with a unit per card, its decisions replayed through
+``engine="vector"``.
 
 Phases: 1 device and build (and the tensor-core instructions in the SASS
 of the flash kernels and the bf16 ssd kernels, the TMA loads of the bf16
@@ -76,7 +88,8 @@ the float32 flash kernel with one TF32 pass, beside it), 2 kernels vs
 plain versions, 3 paper node, 4
 elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer,
 10 the scheduler daemon, 11 MoE serving, 12 training, 13 co-scheduling,
-14 roofline, 15 serving the dense, vision and encoder-decoder families.
+14 roofline, 15 serving the dense, vision and encoder-decoder families,
+16 training over ranks.
 ``score_reduce`` carries the idle-node guard in its one launch
 (``guard=``); phases 3-5 print its guarded calls, and phase 6 the
 guarded segments of the packed launches, one per staged burst.
@@ -2975,13 +2988,16 @@ class FixedSpecs:
         return 0.0
 
 
-def phase_cosched(device, workdir, steps=COSCHED_STEPS):
+def phase_cosched(device, workdir, steps=COSCHED_STEPS, *, cell="cosched_trio_u4",
+                  host_devices=COSCHED_UNITS, jobs=None):
     """Cell ``cosched_trio_u4``: ``repro_torch.launch.coschedule``'s main
     on ``device`` with 4 logical units, K = 2, the reference's default jobs
     (reduced), batch 4, seq 64; ``score_reduce`` must have launched on this
     path; every recorded ``on_event``, replayed through
     ``EcoSched(engine="vector")`` on the same measured specs, must give the
-    same launches; every job must finish with a finite loss."""
+    same launches; every job must finish with a finite loss.  Phase 16
+    runs it as ``cosched_cards``: ``host_devices`` None (a unit per card)
+    and two of the ``jobs``."""
     import math
     import os
     import shutil
@@ -2991,13 +3007,14 @@ def phase_cosched(device, workdir, steps=COSCHED_STEPS):
 
     ckpt = workdir / "cosched"
     shutil.rmtree(ckpt, ignore_errors=True)
-    old = os.environ.get("REPRO_HOST_DEVICES")
-    os.environ["REPRO_HOST_DEVICES"] = str(COSCHED_UNITS)
+    old = os.environ.pop("REPRO_HOST_DEVICES", None)
+    if host_devices is not None:
+        os.environ["REPRO_HOST_DEVICES"] = str(host_devices)
     try:
         K.reset_stats()
         out = LC.main(["--device", device.type, "--steps", str(steps), "--batch", "4",
                        "--seq", "64", "--domains", "2", "--lam", str(LAM), "--tau", str(TAU),
-                       "--ckpt-dir", str(ckpt)])
+                       "--ckpt-dir", str(ckpt)] + (["--jobs", jobs] if jobs else []))
         stats = read_stats()
     finally:
         if old is None:
@@ -3011,14 +3028,15 @@ def phase_cosched(device, workdir, steps=COSCHED_STEPS):
         check([(l.job, l.g, l.f) for l in launches] == [(l.job, l.g, l.f) for l in want],
               f"cosched: event {i} launched {launches}, the vector engine {want}")
     losses = {n: r["final_loss"] for n, r in out["results"].items()}
-    check(len(losses) == 3 and all(math.isfinite(x) for x in losses.values()),
+    n_jobs = len(jobs.split(",")) if jobs else 3
+    check(len(losses) == n_jobs and all(math.isfinite(x) for x in losses.values()),
           f"cosched: final losses {losses}")
     m = {"units": out["units"], "phase1_s": out["phase1_s"],
          "t_hat": {n: {g: round(t, 6) for g, t in th.items()} for n, th in out["t_hat"].items()},
          "events": len(out["events"]), "makespan_s": out["makespan"], "final_losses": losses,
          "score_reduce_launches": stats["score_reduce"]["launches"],
          "score_reduce_guarded": stats["score_reduce"]["guarded"]}
-    print("  cosched_trio_u4: " + " ".join(f"{k}={v!r}" for k, v in m.items()))
+    print(f"  {cell}: " + " ".join(f"{k}={v!r}" for k, v in m.items()))
     return m
 
 
@@ -3216,6 +3234,298 @@ def phase_roofline(device, path, measured):
                         makespan_improvement=s["makespan_improvement"],
                         edp_saving=s["edp_saving"])
     print("  roofline_sched_h100_node: " + " ".join(f"{k}={v!r}" for k, v in out["sched"].items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: data-parallel training over ranks, train_dp_granite_reduced_cards
+# ---------------------------------------------------------------------------
+
+
+def dp_probe(mesh):
+    """The train step's collectives on the ranks' own devices (all-reduce,
+    reduce-scatter, all-gather, through the port's wrappers), each held to
+    its answer; {collective: why it was refused} for those the backend
+    refuses."""
+    import torch
+    from repro_torch.distributed.meshes import NamedSharding, P
+
+    n, i = len(mesh.ranks), mesh.index
+    x = (torch.arange(4 * n, dtype=torch.float32, device=mesh.device) + 1) * (i + 1)
+    share = NamedSharding(mesh, P("data"))
+    want = torch.arange(4 * n, dtype=torch.float32, device=mesh.device) + 1
+    want = want * (n + 1) / 2  # the ranks' mean of x
+    refused = {}
+    for name, fn, ok in (
+            ("all_reduce", lambda: mesh.mean(x), lambda y: torch.equal(y, want)),
+            ("reduce_scatter", lambda: share.reduce(x),
+             lambda y: torch.equal(y, want[4 * i:4 * i + 4])),
+            ("all_gather", lambda: share.gather(want[4 * i:4 * i + 4].clone()),
+             lambda y: torch.equal(y, want))):
+        try:
+            y = fn()
+        except RuntimeError as e:  # the refusal is what this probe reports
+            refused[name] = str(e).strip().splitlines()[0][:160]
+            continue
+        check(ok(y), f"{name} over {mesh.device} gave {y.tolist()}")
+    return refused
+
+
+class CollectiveClock:
+    """Time inside the port's collectives (``torch.distributed``'s
+    all-reduce and ``distributed/meshes.py``'s reduce-scatter and
+    all-gather) while entered, waits for the other ranks included, tallied
+    per train step (each step built by ``make_train_step`` while entered
+    closes a tally).  NCCL returns when a collective is queued, so on a
+    card it is timed by CUDA events around the call on the caller's
+    stream, which waits for the collective; gloo returns when it is done,
+    so it is timed on the host.  A group's first collective also sets up
+    its communicator, and checkpoints gather between steps: the median
+    step is the steady one."""
+
+    def __init__(self, events: bool):
+        self.events = events
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from repro_torch.distributed import meshes
+        from repro_torch.train import loop
+
+        self._host_us, self._pairs, self._steps = 0.0, [], []
+        self._orig = [(mod, name, getattr(mod, name)) for mod, name in (
+            (dist, "all_reduce"), (meshes, "_reduce_scatter"), (meshes, "_all_gather"),
+            (loop, "make_train_step"))]
+        for mod, name, fn in self._orig:
+            setattr(mod, name, self._stepped(fn) if name == "make_train_step"
+                    else self._timed(fn))
+        return self
+
+    def _timed(self, fn):
+        import torch
+
+        def call(*a, **k):
+            if self.events:
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                self._pairs.append((e0, e1))
+                return out
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self._host_us += (time.perf_counter() - t0) * 1e6
+        return call
+
+    def _stepped(self, make):
+        def build(*a, **k):
+            step = make(*a, **k)
+
+            def counted(state, batch):
+                out = step(state, batch)
+                self._steps.append((self._host_us, self._pairs))
+                self._host_us, self._pairs = 0.0, []
+                return out
+            return counted
+        return build
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+
+    def per_step_us(self):
+        """Each step's collective µs (call after the device has
+        synchronised)."""
+        return [h + sum(a.elapsed_time(b) for a, b in pairs) * 1e3
+                for h, pairs in self._steps]
+
+
+def measured_rank(kw, carry):
+    """Phase 16's stand-in for ``repro_torch.train.loop._run_rank``, which
+    ``dp_scenario`` installs in its own process so that ``Trainer.run()``
+    spawns it in every rank: ``_run_rank`` itself under
+    ``CollectiveClock``, after (gloo on a card) the step's collectives are
+    checked on this rank's device (``dp_probe``; a refusal fails the job
+    once recorded).  Each rank writes its steps, median step seconds,
+    collective µs per step (median and largest step) and peak memory to
+    ``rank<r>.json`` in the job's directory."""
+    import torch
+    from repro_torch.distributed import procs
+    from repro_torch.distributed.meshes import make_mesh
+    from repro_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = procs.current()
+    dev = world.device
+    cuda = dev.type == "cuda"  # the CPU in a rehearsal
+    m = {"rank": world.rank, "device": str(dev)}
+    path = Path(kw["tcfg"].ckpt_dir) / f"rank{world.rank}.json"
+    if world.backend == "gloo" and cuda:
+        m["refused"] = dp_probe(make_mesh((world.size, 1), ("data", "model"),
+                                          devices=[u for row in world.rows for u in row]))
+        if m["refused"]:
+            path.write_text(json.dumps(m))
+            raise RuntimeError(f"gloo refused {sorted(m['refused'])} on CUDA tensors")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    hist, before = carry[0], len(carry[0])  # the Trainer appends this rank's steps
+    with CollectiveClock(events=cuda and world.backend == "nccl") as clock:
+        out = loop._run_rank(kw, carry)
+    sync(dev)
+    coll = clock.per_step_us()
+    m.update(steps=len(hist) - before,
+             step_s=statistics.median(h["dt"] for h in hist[before:]),
+             collective_us_per_step=statistics.median(coll), collective_us_max=max(coll),
+             peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else "not measured")
+    path.write_text(json.dumps(m))
+    return out
+
+
+def dp_scenario(device, workdir, backend, rank_units):
+    """``tests/test_multidevice.py``'s elastic scenario at model_par 1 on
+    ``rank_units`` (one rank each) over ``backend``, through
+    ``Trainer.run()``: reduced granite-8b (vocab 512, float32), master
+    weights, B 8 x S 32, 30 steps, a checkpoint every 8, half the ranks
+    lost at step 18 (none at world size 1), against the one-process
+    Trainer on ``device`` over as many logical units: world size 1 bit
+    for bit, more ranks every step's loss of the 30-step history within
+    rel. 1e-5; the final parameters' largest difference (relative to
+    their leaf's largest magnitude) and the count of elements over 1e-5
+    are reported (Adam's step on a near-zero gradient, a rarely seen
+    token's embedding row, swings on the last bits of the reduction
+    order).  Each rank's numbers come from ``measured_rank``.  With ranks
+    on several cards, the survivors' Trainer then rescales onto as many
+    other units and restores step 30 (a third start of processes, left
+    out on one card)."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.fault import FailureInjector
+    from repro_torch.distributed.meshes import units
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.optim import AdamW, AdamWConfig, WarmupCosine
+    from repro_torch.train import loop
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.tree import leaves_with_paths
+
+    W = len(rank_units)
+    lost = W // 2
+    cfg = reduced(get_config("granite-8b")).replace(vocab_size=512, dtype="float32")
+    dirs = {tag: workdir / f"dp_{backend}{W}_{tag}" for tag in ("one", "ranks")}
+
+    def trainer(tag, devices, **kw):
+        return Trainer(
+            cfg, build_model(cfg, Runtime(remat="none")), AdamW(AdamWConfig(master_weights=True)),
+            WarmupCosine(peak_lr=2e-3, warmup_steps=3, decay_steps=30),
+            SyntheticLM(cfg, batch=8, seq_len=32),
+            TrainerConfig(total_steps=30, ckpt_every=8, ckpt_dir=str(dirs[tag]), log_every=1000,
+                          timeout_s=300),
+            devices=devices, failure_injector=FailureInjector(schedule={18: lost} if lost else {}),
+            device=device, **kw)
+
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    one = trainer("one", units(device, count=W)).run()
+    m = {"world": W, "backend": backend, "cards": len({u.device for u in rank_units}),
+         "one_process_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    tr = trainer("ranks", rank_units, backend=backend)
+    orig, loop._run_rank = loop._run_rank, measured_rank
+    try:
+        got = tr.run()
+        failure = None
+    except RuntimeError as e:  # a gloo refusal is reported; anything else re-raised below
+        failure = e
+    finally:
+        loop._run_rank = orig
+    m["ranks_s"] = time.perf_counter() - t0
+    ranks = [json.loads(p.read_text()) for p in sorted(dirs["ranks"].glob("rank*.json"))]
+    refused = {r["rank"]: r["refused"] for r in ranks if r.get("refused")}
+    if refused:
+        m["refused"] = refused
+        return m
+    if failure is not None:
+        raise failure
+    check(got["final_step"] == 30 and got["recoveries"] == (1 if lost else 0),
+          f"dp {backend} x{W}: step {got['final_step']}, recoveries {got['recoveries']}")
+    gl = [h["loss"] for h in got["history"]]
+    wl = [h["loss"] for h in one["history"]]
+    check(len(gl) == len(wl), f"dp {backend} x{W}: {len(gl)} steps against {len(wl)}")
+    one_state = dict(leaves_with_paths(one["state"]))
+    if W == 1:
+        bad = [k for k, t in leaves_with_paths(got["state"])
+               if not torch.equal(t, one_state[k].cpu())]
+        check(gl == wl and not bad,
+              f"dp {backend} x1 vs one process: losses equal {gl == wl}, leaves differ {bad[:4]}")
+        m["vs_one_process"] = "bitwise"
+    else:
+        rels = [abs(a - b) / abs(b) for a, b in zip(gl, wl)]
+        step_rel = max(rels)
+        at = rels.index(step_rel)
+        m["loss_rel_max_at"] = {"entry": at, "step": got["history"][at]["step"],
+                                "ranks": gl[at], "one_process": wl[at]}
+        over = 0
+        for k, t in leaves_with_paths(got["state"]["params"]):
+            w = one_state[f"params/{k}"].cpu()
+            over += int(((t - w).abs() > 1e-5 * w.abs().max()).sum())
+        m.update(loss_rel_max=step_rel, param_rel_max=max(
+            rel_err(t, one_state[f"params/{k}"].cpu())
+            for k, t in leaves_with_paths(got["state"]["params"])), params_over_1e5=over)
+        check(step_rel <= 1e-5,
+              f"dp {backend} x{W} vs one process: a step's loss off by rel. {step_rel}")
+    m["per_rank"] = ranks
+    if lost and m["cards"] > 1:
+        t0 = time.perf_counter()
+        tr.rescale(rank_units[:W - lost])
+        again = tr.run()
+        check(again["final_step"] == 30 and again["history"] == got["history"],
+              f"rescale onto {W - lost}: step {again['final_step']}")
+        m["rescale"] = {"ranks": W - lost, "restored_step": again["final_step"],
+                        "s": time.perf_counter() - t0}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    return m
+
+
+def phase_train_dp(device, workdir, cards=None, cosched_steps=6):
+    """Phase 16, cell ``train_dp_granite_reduced_cards``: ``dp_scenario``
+    over NCCL on ``min(device_count, 4)`` cards, one rank each (world size
+    1 on one card); with one card, also 2 ranks on it over gloo where gloo
+    carries the step's collectives on CUDA tensors (else the collective it
+    refused is printed).  Then ``phase_cosched`` as ``cosched_cards``: the
+    co-scheduler with each job on its own cards."""
+    import torch
+    from repro_torch.distributed.meshes import LogicalDevice
+
+    n = cards or min(torch.cuda.device_count(), 4)
+    workdir.mkdir(parents=True, exist_ok=True)
+    runs = [("nccl", [LogicalDevice(i, torch.device("cuda", i)) for i in range(n)])]
+    if n == 1:
+        runs.append(("gloo", [LogicalDevice(i, device) for i in range(2)]))
+    out = {"cards": n, "runs": []}
+    for backend, rank_units in runs:
+        m = dp_scenario(device, workdir, backend, rank_units)
+        cross = ("not run (one card)" if m["cards"] == 1 else
+                 "refused" if "refused" in m else f"passed on {m['cards']} cards")
+        print(f"  train_dp_granite_reduced_cards: world={m['world']} backend={backend} "
+              f"cards={m['cards']} cross_card={cross} "
+              + " ".join(f"{k}={v!r}" for k, v in m.items()
+                         if k not in ("world", "backend", "cards", "per_rank")))
+        for r in m.get("per_rank", ()):
+            print(f"    rank {r['rank']} on {r['device']}: steps={r['steps']} "
+                  f"step_s={r['step_s']!r} collective_us_per_step="
+                  f"{r['collective_us_per_step']!r} (largest step "
+                  f"{r['collective_us_max']!r}) peak_bytes={r['peak_bytes']}")
+        if "refused" in m:
+            print(f"  gloo refused on CUDA tensors: {m['refused']}; world size 1 only")
+        out["runs"].append(m)
+    out["cosched"] = phase_cosched(device, workdir, cosched_steps, cell="cosched_cards",
+                                   host_devices=None, jobs="granite-8b,mamba2-2.7b")
+    check(out["cosched"]["score_reduce_launches"] > 0,
+          "score_reduce was never launched on the multi-card co-scheduling path")
     return out
 
 
@@ -3430,6 +3740,12 @@ def main() -> int:
             max_abs_err=model_err["flash_by_case"][FAMILY_FLASH[shape], "bfloat16"],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    print("== phase 16: data-parallel training over ranks, train_dp_granite_reduced_cards")
+    torch.cuda.empty_cache()
+    dp = phase_train_dp(device, ROOT / "build" / "train")
+    print(f"  multi-card co-scheduling launches: "
+          f"score_reduce={dp['cosched']['score_reduce_launches']}")
+    lap("16")
     print(f"  phase_seconds={laps} total_s={time.perf_counter() - t_start:.1f}")
     print(smi())
     print(json.dumps({"kernels": kernels}))

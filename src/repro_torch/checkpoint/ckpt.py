@@ -11,10 +11,13 @@ checkpoint written by either package restores in the other:
   ``dtype_map`` naming the bfloat16 leaves.
 
 Writes go to a temporary directory followed by ``os.replace`` (atomic on
-POSIX), so a crash mid-save never corrupts the latest checkpoint.  A
-restore reads host-side numpy and places each leaf where the restoring
-job's sharding says (here: its mesh's card), so a job resumes on fewer or
-more units after a failure or a rescale.
+POSIX), so a crash mid-save never corrupts the latest checkpoint.  A job
+over several ranks saves the whole leaves, gathered from the ranks' shares
+and written by its first rank, so its checkpoint is the one-process
+format.  A restore reads host-side numpy and places each leaf where the
+restoring job's sharding says (its mesh's card, or this rank's share), so
+a job resumes on fewer or more units or ranks after a failure or a
+rescale.
 """
 from __future__ import annotations
 
@@ -46,8 +49,29 @@ def _host(leaf) -> Tuple[np.ndarray, bool]:
     return a, False
 
 
-def _host_tree(tree) -> Dict[str, Tuple[np.ndarray, bool]]:
-    return {k: _host(v) for k, v in leaves_with_paths(tree)}
+def _host_tree(tree, shardings=None) -> Optional[Dict[str, Tuple[np.ndarray, bool]]]:
+    """The tree's leaves as host arrays.  With ``shardings`` each leaf is
+    first gathered whole from the ranks' shares (every rank takes part);
+    only the mesh's lead keeps the arrays, the others get None."""
+    if shardings is None:
+        return {k: _host(v) for k, v in leaves_with_paths(tree)}
+    shard_of = dict(leaves_with_paths(shardings))
+    lead = all(s.mesh.lead for s in shard_of.values())
+    out = {}
+    for k, v in leaves_with_paths(tree):
+        v = shard_of[k].gather(v)
+        if lead:
+            out[k] = _host(v)
+    return out if lead else None
+
+
+def tree_from_host(flat: Dict[str, Tuple[np.ndarray, bool]]) -> Dict[str, Any]:
+    """A host snapshot (``CheckpointManager.save``'s) as a tree of CPU
+    tensors, bfloat16 leaves in their type."""
+    out: Dict[str, Any] = {}
+    for k, (a, bf16) in flat.items():
+        set_by_path(out, k, _leaf_tensor(a, bf16))
+    return out
 
 
 def save(path: str, tree, *, step: int = 0, metadata: Optional[dict] = None) -> None:
@@ -142,9 +166,9 @@ def restore(path: str, like, *, shardings=None) -> Tuple[Any, dict]:
     Without ``shardings`` each leaf takes the template's type and device
     (the CPU for a ``meta`` template).  ``shardings``: a tree of the same
     structure of ``NamedSharding`` (``distributed.sharding``), which
-    places each leaf, in its stored type, on its mesh's card -- the
-    elastic path.  Leaves are read and placed one at a time, so the host
-    holds one leaf at once.
+    places each leaf, in its stored type, on its mesh's card or as this
+    rank's share -- the elastic path.  Leaves are read and placed one at
+    a time, so the host holds one leaf at once.
     """
     meta = _read_meta(path)
     bf16 = set(meta.get("dtype_map", {}))
@@ -212,11 +236,18 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def save(self, step: int, tree, metadata: Optional[dict] = None):
+    def save(self, step: int, tree, metadata: Optional[dict] = None, *, shardings=None):
+        """Snapshot ``tree`` to host memory now and write it (in a thread
+        when ``async_save``).  ``shardings``: the tree's ``NamedSharding``s
+        on a mesh over ranks, whose leaves are gathered whole (every rank
+        calls this) and written by the mesh's lead.  Returns the host
+        snapshot, None on the ranks that do not write."""
         self.wait()
         # snapshot to host memory synchronously; write asynchronously
         t0 = time.perf_counter()
-        host_tree = _host_tree(tree)
+        host_tree = _host_tree(tree, shardings)
+        if host_tree is None:
+            return None
         self.last_snapshot_s = time.perf_counter() - t0
 
         def job():
@@ -235,6 +266,7 @@ class CheckpointManager:
         else:
             job()
             self.wait()
+        return host_tree
 
     def restore_latest(self, like, *, shardings=None):
         self.wait()

@@ -4,10 +4,11 @@ Twin of ``repro.distributed.ctx``.  Model code stays mesh-agnostic: it
 calls ``constrain(x, tag)`` at the reference's points ("embed",
 "residual", "attn_out").  Launchers install a rule table (tag ->
 ``NamedSharding``) around the step; with no rules installed the call
-does nothing.  With rules it does nothing either: every unit of a mesh
-lies on one card, where the constrained layout and the unconstrained one
-are the same tensor (``distributed/meshes.py``), so the tags are kept
-for the day a mesh spans cards.  The rules and the mesh are thread-local,
+does nothing.  With rules it does nothing either: on a mesh of one
+process the constrained layout and the unconstrained one are the same
+tensor, and on a mesh over ranks each rank already holds its own rows of
+the batch while the model axis lies within it (``distributed/meshes.py``),
+so the tags are kept for tensor parallelism across cards.  The rules and the mesh are thread-local,
 so co-scheduled jobs training in threads do not see each other's.
 """
 from __future__ import annotations
@@ -39,7 +40,8 @@ def sharding_rules(rules: Optional[Dict[str, object]]):
 
 
 def constrain(x: torch.Tensor, tag: str) -> torch.Tensor:
-    """``x`` under the sharding its tag names: ``x`` itself, on one card."""
+    """``x`` under the sharding its tag names: ``x`` itself (see the
+    module docstring)."""
     return x
 
 

@@ -2,10 +2,11 @@
 
 Twin of ``repro.distributed.sharding``: pure functions of the config, the
 mesh's shape and the leaves' shapes, whose specs equal the reference's
-``PartitionSpec`` entry for entry.  On one card a spec does not split
-anything (``distributed/meshes.py``): the specs name the layout the
-reference's SPMD program would take, and placing a leaf under one puts
-it on the mesh's card.
+``PartitionSpec`` entry for entry.  On a mesh of one card a spec does
+not split anything: placing a leaf under one puts it whole on the mesh's
+card.  On a mesh over ranks (``distributed/meshes.py``) a spec that
+names ``data`` gives each rank its share of that dimension (the batch,
+and the ZeRO-extended optimizer state), and one without it stays whole.
 
 Baseline layout (2-D ``(data, model)`` mesh, optionally with a leading
 ``pod`` axis that joins the data axes):

@@ -5,14 +5,18 @@ training jobs on carved unit blocks (twin of ``repro.launch.coschedule``).
         --jobs granite-8b,mamba2-2.7b,phi4-mini-3.8b --steps 20
 
 Each job is a reduced-config training run.  Phase I profiles every job
-briefly (a few measured steps per feasible unit count), Phase II picks
-the joint action with Eq. (1) -- ``EcoSched(engine="torch")``, whose
-decisions launch the ``score_reduce`` kernel on the card -- and launched
-jobs train concurrently in threads, each on its own contiguous block of
-logical units.  Every completion re-invokes the policy.  The units are
-logical devices of one card (``distributed/meshes.py``): jobs on
-disjoint units share its SMs and memory, and Phase I measures whatever
-that gives.  The power model is the reference's stand-in, 60 + 140·g W.
+briefly (a few measured steps per feasible unit count; t̂ is the median
+step's seconds), Phase II picks the joint action with Eq. (1) --
+``EcoSched(engine="torch")``, whose decisions launch the ``score_reduce``
+kernel on the card -- and launched jobs train concurrently in threads,
+each on its own contiguous block of units.  Every completion re-invokes
+the policy.  Without ``REPRO_HOST_DEVICES`` a unit is a card
+(``distributed/meshes.py``): a job on g units of g cards runs as a g-rank
+data-parallel group over NCCL inside its thread (``train/loop.py``), and
+Phase I measures t̂ for each g on g cards.  With it, the units are
+logical devices of one card: jobs on disjoint units share its SMs and
+memory, and Phase I measures whatever that gives.  The power model is the
+reference's stand-in, 60 + 140·g W.
 
 Runs on the card unless ``--device cpu`` is given; without a card and
 without ``--device cpu`` it exits 2.  As in the reference, the loop
@@ -27,6 +31,7 @@ import argparse
 import copy
 import os
 import queue
+import statistics
 import sys
 import tempfile
 import threading
@@ -48,7 +53,8 @@ from repro_torch.train.loop import Trainer, TrainerConfig
 
 class MeasuredPerfModel:
     """Phase I by real measurement: time a few steps per unit count.
-    ``t_hat[name]`` keeps each job's measured seconds per step by g."""
+    ``t_hat[name]`` keeps each job's median step seconds by g (the step
+    alone, so a job that starts g processes is not charged their start)."""
 
     def __init__(self, jobs: Dict[str, dict], devices, profile_steps: int = 3, *,
                  ckpt_root: str):
@@ -65,11 +71,9 @@ class MeasuredPerfModel:
         job = self.jobs[name]
         t_hat, p_hat = {}, {}
         for g in job["counts"]:
-            trainer = _make_trainer(job, self.devices[:g], steps=self.profile_steps,
-                                    tag=f"prof{g}", ckpt_root=self.ckpt_root)
-            t0 = time.perf_counter()
-            trainer.run()
-            t_hat[g] = (time.perf_counter() - t0) / self.profile_steps
+            out = _make_trainer(job, self.devices[:g], steps=self.profile_steps,
+                                tag=f"prof{g}", ckpt_root=self.ckpt_root).run()
+            t_hat[g] = statistics.median(h["dt"] for h in out["history"])
             p_hat[g] = 60.0 + 140.0 * g  # the reference's power stand-in
         self.t_hat[name] = t_hat
         self._cache[name] = _mk_spec(name, t_hat, p_hat)
@@ -213,7 +217,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
             "seq": args.seq, "counts": counts, "steps": args.steps,
         }
 
-    print(f"coschedule: {len(jobs)} jobs on {M} units of {devices[0].device}, "
+    cards = sorted({str(u.device) for u in devices})
+    print(f"coschedule: {len(jobs)} jobs on {M} units of {', '.join(cards)}, "
           f"K={args.domains}")
     pm = MeasuredPerfModel(jobs, devices, ckpt_root=args.ckpt_dir)
     t_prof = time.perf_counter()

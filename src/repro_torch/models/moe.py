@@ -29,7 +29,9 @@ slot) pairs that land on its own experts (capacity from the shard's own
 token count, positions counted over the shard's flattened tokens), and
 computes their part of the output; the columns' parts are summed (the
 reference's ``psum``).  On one card the columns run one by one and are
-summed in column order, with no float atomics.
+summed in column order, with no float atomics.  On a mesh over ranks
+(``distributed/meshes.py``) ``x`` is already this rank's data shard and
+the model axis lies within the rank.
 
 Supports qwen2-moe (shared experts + routed) and arctic (dense-residual
 FFN in parallel with the routed experts).
@@ -223,9 +225,10 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg, mesh, *,
         raise ValueError(f"{E} experts do not divide the model axis {mp}")
     E_loc = E // mp
     dp = 1
-    for a in mesh.axis_names:
-        if a in ("pod", "data"):
-            dp *= mesh.shape[a]
+    if getattr(mesh, "group", None) is None:  # over ranks, x is this rank's rows
+        for a in mesh.axis_names:
+            if a in ("pod", "data"):
+                dp *= mesh.shape[a]
     n_shards = dp if (dp > 1 and B % dp == 0) else 1
     B_loc = B // n_shards
     T = B_loc * S

@@ -56,6 +56,21 @@ def _dq8(qs: Dict[str, torch.Tensor], shape) -> torch.Tensor:
     return flat_last[..., :last].reshape(shape)
 
 
+def _splits_alike(s, ms, shape) -> bool:
+    """Whether a moment with sharding ``ms`` is split as the leaf (shape
+    ``shape``) is under ``s``: always for float moments (one ZeRO spec on
+    one shape); for int8 codes, when ``q`` and ``scale`` split the leaf's
+    dimension (a leading one, or the block axis of a last dimension that
+    is whole blocks)."""
+    if not isinstance(ms, dict):
+        return True
+    d = s.dim
+    q, sc = ms["q"].dim, ms["scale"].dim
+    if d is None:
+        return q is None and sc is None
+    return q == d and sc == d and (d < len(shape) - 1 or shape[-1] % BLOCK == 0)
+
+
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
@@ -106,14 +121,38 @@ class AdamW:
         return state
 
     # -- update ----------------------------------------------------------
-    def update(self, grads, state: dict, params, lr: torch.Tensor
+    def update(self, grads, state: dict, params, lr: torch.Tensor, *,
+               grad_shardings=None, opt_shardings=None
                ) -> Tuple[dict, dict, Dict[str, torch.Tensor]]:
-        """Returns (new_params, new_state, metrics)."""
+        """Returns (new_params, new_state, metrics).
+
+        ``grad_shardings``: the ``NamedSharding`` tree the gradients were
+        reduced to (``train/step.py``).  On a mesh over ranks each leaf's
+        gradient, moments and master copy are this rank's share along the
+        sharding's ``dim`` (the ZeRO layout of ``opt_shardings``, the
+        state's ``NamedSharding`` tree), the parameters are whole: the
+        update runs on the share and the new shares are all-gathered into
+        the new parameters.  The clip norm is global: the leaves' squared
+        sums are all-reduced (a replicated leaf counted once), so every
+        rank scales by the same number.  Int8 moments whose blocks are
+        split otherwise than the gradient (the ZeRO dimension of their
+        ``q``/``scale`` is not the leaf's, or splits a block) are updated
+        whole on every rank from their gathered codes and keep their own
+        share.  Without shardings, or on a mesh of one process, everything
+        is whole."""
         cfg = self.cfg
+        mesh = None if grad_shardings is None else leaves(grad_shardings)[0].mesh
+        if mesh is not None and mesh.group is None:
+            mesh = None
         count = state["count"] + 1
+        sums = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves(grads)]
+        if mesh is not None and sums:
+            own = [s.dim is not None or mesh.lead for s in leaves(grad_shardings)]
+            sums = list(mesh.sum(torch.stack(
+                [x if o else torch.zeros_like(x) for x, o in zip(sums, own)])).unbind())
         sq = torch.zeros((), dtype=torch.float32, device=count.device)
-        for g in leaves(grads):
-            sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+        for x in sums:
+            sq = sq + x
         gnorm = torch.sqrt(sq)
         if cfg.clip_norm:
             scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -140,7 +179,25 @@ class AdamW:
             new_p = new_master.to(p.dtype)
             return new_p, self._encode(m), self._encode(v), (new_master if use_master else None)
 
-        out = tree_map(upd, params, grads, state["m"], state["v"], masters)
+        if mesh is None:
+            out = tree_map(upd, params, grads, state["m"], state["v"], masters)
+        else:
+            def upd_share(s, p, g, m_enc, v_enc, master, ms, vs):
+                if _splits_alike(s, ms, p.shape):
+                    new_p, m, v, nm = upd(s.place(p), g, m_enc, v_enc,
+                                          master if use_master else None)
+                    return s.gather(new_p), m, v, nm
+                # int8 codes split otherwise than the leaf: update it whole
+                whole = {k: tree_map(lambda sh, t: sh.gather(t), sp, enc)
+                         for k, sp, enc in (("m", ms, m_enc), ("v", vs, v_enc))}
+                new_p, m, v, nm = upd(p, s.gather(g), whole["m"], whole["v"],
+                                      s.gather(master) if use_master else None)
+                return (new_p, tree_map(lambda sh, t: sh.place(t), ms, m),
+                        tree_map(lambda sh, t: sh.place(t), vs, v),
+                        s.place(nm) if use_master else None)
+
+            out = tree_map(upd_share, grad_shardings, params, grads, state["m"], state["v"],
+                           masters, opt_shardings["m"], opt_shardings["v"])
         new_state = {"m": tree_pick(out, 1), "v": tree_pick(out, 2), "count": count}
         if use_master:
             new_state["master"] = tree_pick(out, 3)

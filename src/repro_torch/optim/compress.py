@@ -8,9 +8,10 @@ time.  The train step applies
 
     g_q, residual' = compress(g + residual)
 
-and feeds ``g_q`` to AdamW.  On one card there is no reduction to
+and feeds ``g_q`` to AdamW.  On one process there is no reduction to
 narrow: the transform runs for its numbers, as the reference's does on
-one device.
+one device.  Over ranks the step compresses the gradients' mean, whole,
+as the reference compresses its reduced gradients (``train/step.py``).
 """
 from __future__ import annotations
 

@@ -6,8 +6,9 @@ checkpoint layer and the sharding-spec layer need no special casing; it
 returns a new state and leaves the one it was given as it was.
 Gradients are ``torch.autograd.grad`` over the parameter leaves, in the
 leaves' types (bf16 leaves give bf16 grads, as ``jax.value_and_grad``
-does).  ``decode_step``/``prefill`` wrap the model's serving entry
-points.
+does).  On a mesh over ranks the step is data-parallel
+(``make_train_step``).  ``decode_step``/``prefill`` wrap the model's
+serving entry points.
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.meshes import NamedSharding, P
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamW, compress_grads, init_residuals
-from repro_torch.tree import leaves_with_paths, set_by_path, tree_map
+from repro_torch.tree import leaves, leaves_with_paths, set_by_path, tree_map
 
 
 def init_state(model: Model, optimizer: AdamW, rng=0, *, compress: bool = False,
@@ -64,22 +66,42 @@ def make_train_step(
     compress: bool = False,
     grad_accum: int = 1,
     grad_shardings=None,
+    opt_shardings=None,
 ) -> Callable:
-    """``grad_shardings``: optional ``NamedSharding`` tree (the ZeRO
-    layout) the reference constrains every (micro)batch's gradients to.
-    On one card that layout is the gradients as they are, so it is
-    accepted and changes nothing."""
+    """``grad_shardings``: optional ``NamedSharding`` tree the reference
+    constrains every (micro)batch's gradients to (its ZeRO layout).  On a
+    mesh over ranks (``distributed/meshes.py``) each rank computes the
+    loss of its rows, and each (micro)batch's gradients are reduced over
+    the ranks to that layout: reduce-scattered where a leaf's spec names
+    ``data``, all-reduced where it does not (a leaf ZeRO leaves whole, or
+    every leaf without ZeRO), and divided by the rank count.  A gradient is
+    reduced in the type the step holds it in: a bf16 leaf's in bf16, as
+    the one-process step computes it, and every microbatch's in float32
+    under ``grad_accum``.  The loss and metrics are the ranks' mean
+    (exact for the token-mean loss on equal shares of rows; MoE's
+    balance loss is each rank's own).  With ``compress`` the gradients are
+    all-reduced, compressed whole and then split, as the reference
+    compresses its reduced gradients.  ``opt_shardings`` (the optimizer
+    state's tree) goes to ``AdamW.update``.  On a mesh of one process the
+    layout is the gradients as they are, and nothing changes."""
+    mesh = None if grad_shardings is None else leaves(grad_shardings)[0].mesh
+    ranked = mesh is not None and mesh.group is not None
+    whole = (tree_map(lambda s: NamedSharding(s.mesh, P()), grad_shardings)
+             if ranked and compress else grad_shardings)
+
+    def reduce(grads):
+        return tree_map(lambda s, g: s.reduce(g), whole, grads) if ranked else grads
 
     def train_step(state: dict, batch: dict) -> Tuple[dict, Dict[str, torch.Tensor]]:
         if grad_accum > 1:
             # Microbatches over the leading batch dim, in order, each
-            # one's grads in float32 added to the running sum; loss,
-            # grads and the first microbatch's metrics divided at the
-            # end, as the reference does.
+            # one's grads in float32 (reduced over the ranks) added to the
+            # running sum; loss, grads and the first microbatch's metrics
+            # divided at the end, as the reference does.
             def micro(i, params):
                 mb = {k: v.reshape(grad_accum, -1, *v.shape[1:])[i] for k, v in batch.items()}
                 loss, mt, g = value_and_grad(model, params, mb)
-                return (loss, mt), tree_map(lambda x: x.to(torch.float32), g)
+                return (loss, mt), reduce(tree_map(lambda x: x.to(torch.float32), g))
 
             params = state["params"]
             (loss, metrics), grads = micro(0, params)
@@ -92,12 +114,24 @@ def make_train_step(
             metrics = {k: v / grad_accum for k, v in metrics.items()}
         else:
             loss, metrics, grads = value_and_grad(model, state["params"], batch)
+            grads = reduce(grads)
+        if ranked:
+            names = sorted(metrics)
+            means = mesh.mean(torch.stack([loss] + [metrics[k] for k in names]))
+            loss, metrics = means[0], dict(zip(names, means[1:]))
 
         new_state = dict(state)
         if compress:
             grads, new_state["residuals"] = compress_grads(grads, state["residuals"])
+            if ranked:
+                grads = tree_map(lambda s, g: s.place(g), grad_shardings, grads)
         lr = schedule(state["step"])
-        new_params, new_opt, om = optimizer.update(grads, state["opt"], state["params"], lr)
+        if ranked:
+            new_params, new_opt, om = optimizer.update(
+                grads, state["opt"], state["params"], lr,
+                grad_shardings=grad_shardings, opt_shardings=opt_shardings)
+        else:
+            new_params, new_opt, om = optimizer.update(grads, state["opt"], state["params"], lr)
         del grads
         new_state.update(params=new_params, opt=new_opt, step=state["step"] + 1)
         out_metrics = dict(metrics)
