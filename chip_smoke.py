@@ -79,7 +79,14 @@ carries the step's collectives on CUDA tensors (else the refused
 collective is printed); each rank's collectives' µs per step, step s and
 peak memory are printed; then ``repro_torch.launch.coschedule``'s main
 runs with a unit per card, its decisions replayed through
-``engine="vector"``.
+``engine="vector"``.  Tensor-parallel serving (phase 17,
+``serve_tp_dense_cards``): granite-8b at full width and depth over 2
+ranks whose ``model`` axis spans them (2 gloo ranks of one card; on
+several cards, a card each over NCCL, then qwen3-32b over 4), each rank
+holding its share of the reference's Megatron specs and launching
+``flash_attention`` on its own heads, held to the one-process kernel
+route on the same weights; a rank skipping the attention region's
+all-reduce must fail it.
 
 Phases: 1 device and build (and the tensor-core instructions in the SASS
 of the flash kernels and the bf16 ssd kernels, the TMA loads of the bf16
@@ -89,7 +96,7 @@ plain versions, 3 paper node, 4
 elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer,
 10 the scheduler daemon, 11 MoE serving, 12 training, 13 co-scheduling,
 14 roofline, 15 serving the dense, vision and encoder-decoder families,
-16 training over ranks.
+16 training over ranks, 17 tensor-parallel serving over ranks.
 ``score_reduce`` carries the idle-node guard in its one launch
 (``guard=``); phases 3-5 print its guarded calls, and phase 6 the
 guarded segments of the packed launches, one per staged burst.
@@ -147,6 +154,12 @@ FAMILY_FLASH = dict(
     whisper_base_encoder=(8, 1500, 8, 8, 64, 0, 0.0, False),
     whisper_base_decoder=(8, 224, 8, 8, 64, 0, 0.0, True),
 )
+# phase 17's: a rank's heads under tensor parallelism, granite-8b at
+# model_par 2 (16 over 4 heads) and qwen3-32b at 4 (16 over 2, GQA group 8)
+TP_FLASH = dict(
+    granite_8b_mp2=(4, 2048, 16, 4, 128, 0, 0.0, True),
+    qwen3_32b_mp4=(4, 2048, 16, 2, 128, 0, 0.0, True),
+)
 # the model kernels' cases: the reference's kernel tests
 # (tests/test_kernels_flash.py, tests/test_kernels_ssd.py) plus the
 # serving path's shapes (but granite-8b's, timed in phase 7 only)
@@ -166,7 +179,7 @@ FLASH_CASES = (
     # a window with softcap, and S 4096 (the K/V ring wraps 16 times)
     (1, 2113, 8, 8, 128, 0, 0.0, True), (1, 2113, 16, 4, 128, 0, 0.0, True),
     (1, 1000, 8, 2, 128, 300, 30.0, True), (1, 4096, 8, 2, 128, 0, 0.0, True),
-    MOE_FLASH, *FAMILY_FLASH.values(),
+    MOE_FLASH, *FAMILY_FLASH.values(), *TP_FLASH.values(),
     # causal, enough tile pairs for a persistent grid, and an odd tile
     # count: the middle tile walks alone
     (4, 1408, 32, 8, 128, 0, 0.0, True),
@@ -248,6 +261,14 @@ ROOF_COUNTS = (1, 2, 3, 4)
 # divide the length (the reference's blocked route asserts the same):
 # 1,500 frames are no multiple of the config's 1,024, so 500 there
 WHISPER_Q_CHUNK = 500
+# phase 17: granite-8b served over TP_M ranks (phase 8's batch, cache and
+# steps), float32 cut to TP_F32_LAYERS of 36 layers (one card holds the
+# one-process model and the ranks' shares beside it); on several cards
+# qwen3-32b over min(cards, 4) ranks at full depth, held to one process
+# at TP_BIG_ONE_LAYERS of 64 layers (what card 0 holds alone)
+TP_ARCH, TP_M, TP_F32_LAYERS = "granite-8b", 2, 8
+TP_BIG_ARCH, TP_BIG_ONE_LAYERS = "qwen3-32b", 16
+TP_TIMEOUT_S = 900
 
 
 def check(cond, msg: str) -> None:
@@ -3272,16 +3293,18 @@ def dp_probe(mesh):
 
 
 class CollectiveClock:
-    """Time inside the port's collectives (``torch.distributed``'s
+    """The port's collectives while entered (``torch.distributed``'s
     all-reduce and ``distributed/meshes.py``'s reduce-scatter and
-    all-gather) while entered, waits for the other ranks included, tallied
-    per train step (each step built by ``make_train_step`` while entered
-    closes a tally).  NCCL returns when a collective is queued, so on a
-    card it is timed by CUDA events around the call on the caller's
+    all-gather): each call's name, type, elements and µs, waits for the
+    other ranks included.  NCCL returns when a collective is queued, so on
+    a card it is timed by CUDA events around the call on the caller's
     stream, which waits for the collective; gloo returns when it is done,
-    so it is timed on the host.  A group's first collective also sets up
-    its communicator, and checkpoints gather between steps: the median
-    step is the steady one."""
+    so it is timed on the host.  ``take()`` hands back and clears the
+    calls so far; each train step built by ``make_train_step`` while
+    entered closes a tally of its own (``per_step_us``).  Read either
+    after the device has synchronised.  A group's first collective also
+    sets up its communicator, and checkpoints gather between steps: the
+    median step is the steady one."""
 
     def __init__(self, events: bool):
         self.events = events
@@ -3291,31 +3314,31 @@ class CollectiveClock:
         from repro_torch.distributed import meshes
         from repro_torch.train import loop
 
-        self._host_us, self._pairs, self._steps = 0.0, [], []
+        self.calls, self._steps = [], []
         self._orig = [(mod, name, getattr(mod, name)) for mod, name in (
             (dist, "all_reduce"), (meshes, "_reduce_scatter"), (meshes, "_all_gather"),
             (loop, "make_train_step"))]
         for mod, name, fn in self._orig:
             setattr(mod, name, self._stepped(fn) if name == "make_train_step"
-                    else self._timed(fn))
+                    else self._timed(name, fn))
         return self
 
-    def _timed(self, fn):
+    def _timed(self, name, fn):
         import torch
 
         def call(*a, **k):
+            t = a[0] if name == "all_reduce" else a[1]  # the input
             if self.events:
                 e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 e0.record()
                 out = fn(*a, **k)
                 e1.record()
-                self._pairs.append((e0, e1))
+                self.calls.append((name, str(t.dtype), t.numel(), (e0, e1)))
                 return out
             t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                self._host_us += (time.perf_counter() - t0) * 1e6
+            out = fn(*a, **k)
+            self.calls.append((name, str(t.dtype), t.numel(), (time.perf_counter() - t0) * 1e6))
+            return out
         return call
 
     def _stepped(self, make):
@@ -3324,8 +3347,8 @@ class CollectiveClock:
 
             def counted(state, batch):
                 out = step(state, batch)
-                self._steps.append((self._host_us, self._pairs))
-                self._host_us, self._pairs = 0.0, []
+                self._steps.append(self.calls)
+                self.calls = []
                 return out
             return counted
         return build
@@ -3334,11 +3357,20 @@ class CollectiveClock:
         for mod, name, fn in self._orig:
             setattr(mod, name, fn)
 
+    @staticmethod
+    def _in_us(calls):
+        return [(n, d, k, us if isinstance(us, float) else us[0].elapsed_time(us[1]) * 1e3)
+                for n, d, k, us in calls]
+
+    def take(self):
+        """The calls since the last ``take()`` (or step), as (name, type,
+        elements, µs)."""
+        out, self.calls = self._in_us(self.calls), []
+        return out
+
     def per_step_us(self):
-        """Each step's collective µs (call after the device has
-        synchronised)."""
-        return [h + sum(a.elapsed_time(b) for a, b in pairs) * 1e3
-                for h, pairs in self._steps]
+        """Each train step's collective µs."""
+        return [sum(c[3] for c in self._in_us(calls)) for calls in self._steps]
 
 
 def measured_rank(kw, carry):
@@ -3363,7 +3395,7 @@ def measured_rank(kw, carry):
     path = Path(kw["tcfg"].ckpt_dir) / f"rank{world.rank}.json"
     if world.backend == "gloo" and cuda:
         m["refused"] = dp_probe(make_mesh((world.size, 1), ("data", "model"),
-                                          devices=[u for row in world.rows for u in row]))
+                                          devices=list(world.units)))
         if m["refused"]:
             path.write_text(json.dumps(m))
             raise RuntimeError(f"gloo refused {sorted(m['refused'])} on CUDA tensors")
@@ -3527,6 +3559,334 @@ def phase_train_dp(device, workdir, cards=None, cosched_steps=6):
     check(out["cosched"]["score_reduce_launches"] > 0,
           "score_reduce was never launched on the multi-card co-scheduling path")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: tensor-parallel serving over ranks, serve_tp_dense_cards
+# ---------------------------------------------------------------------------
+
+
+def tally_summary(calls):
+    """{"name dtype": [calls, µs]} of ``CollectiveClock.take()``."""
+    out = {}
+    for name, dtype, _, us in calls:
+        c = out.setdefault(f"{name} {dtype}", [0, 0.0])
+        c[0] += 1
+        c[1] += us
+    return out
+
+
+def attn_proj_skipping_leave(self, o, p):
+    """Phase 17's planted fault, put in place of ``Model._attn_proj`` on one
+    rank: the attention sublayer keeps its own partial sum instead of the
+    model group's.  The rank still takes part in the all-reduce (its result
+    dropped), so the ranks stay in step."""
+    from repro_torch.distributed.ctx import leave_model
+
+    out = o.reshape(*o.shape[:2], -1) @ p["wo"]
+    if self._attn_split(p):
+        leave_model(out)
+    return out
+
+
+def tp_serve_leg(leg, mesh, tally):
+    """One leg of ``tp_serve_rank`` in this rank: ``leg["cfg"]`` with seeded
+    weights each rank draws whole a layer at a time and keeps its share of
+    (``train.step.placed_params``: the one-process weights), served over
+    ``mesh`` through ``make_prefill`` / ``make_decode_step`` on the kernel
+    route: a prefill (after a warm-up one with ``leg["warm"]``), then one
+    decode step per token of ``leg["tokens"]`` (the one-process run's).
+    Returns (metrics, the logits of the prefill and each step on the CPU,
+    None unless ``leg["keep"]``)."""
+    import torch
+    from repro_torch.distributed import procs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.models.model import Model
+    from repro_torch.train import make_decode_step, make_prefill
+    from repro_torch.train.step import placed_params
+    from repro_torch.tree import eval_shape, leaves
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    cfg = leg["cfg"]
+    model = build_model(cfg, Runtime(attn_impl="pallas", remat="none"))
+    like = eval_shape(lambda: model.init(0, device="cpu"))
+    specs = shd.named(mesh, shd.param_specs(cfg, mesh, like))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = placed_params(model, torch.Generator(device=dev).manual_seed(SEED), specs)
+    sync(dev)
+    m = {"layers": cfg.num_layers, "init_s": time.perf_counter() - t0,
+         "held_gb": sum(t.nbytes for t in leaves(params)) / 1e9,
+         "whole_gb": sum(t.nbytes for t in leaves(like)) / 1e9}
+    B, P = leg["B"], leg["P"]
+    batch = serve_batch(cfg, dev, B, P)
+    prefill, step = make_prefill(model, mesh), make_decode_step(model, mesh)
+    orig = Model._attn_proj
+    if leg.get("fault_rank") == procs.current().rank:
+        Model._attn_proj = attn_proj_skipping_leave
+    logits = []
+    try:
+        with torch.inference_mode():
+            if leg["warm"]:
+                prefill(params, batch)
+                sync(dev)
+            tally.take()
+            FA.reset_stats()
+            t0 = time.perf_counter()
+            lg, cache = prefill(params, batch)
+            sync(dev)
+            m["prefill_s"] = time.perf_counter() - t0
+            m["flash_launches_per_prefill"] = FA.STATS["flash_attention"]
+            m["prefill_collectives"] = tally_summary(tally.take())
+            m["kv_heads"] = cache["k"].shape[3]
+            check(bool(torch.isfinite(lg.float()).all()) and tuple(lg.shape) == (B, 1, cfg.vocab_size),
+                  f"tp {leg['name']}: prefill logits not finite of shape (B, 1, V)")
+            if leg["keep"]:
+                logits.append(lg.float().cpu())
+            cache = pad_cache(cache, leg["cap"])
+            step_s, step_us, dtypes = [], [], set()
+            for i, tok in enumerate(leg["tokens"]):
+                t0 = time.perf_counter()
+                lg, cache = step(params, cache, tok.to(dev), P + i)
+                sync(dev)
+                step_s.append(time.perf_counter() - t0)
+                calls = tally.take()
+                step_us.append(sum(c[3] for c in calls))
+                dtypes |= {f"{c[0]} {c[1]}" for c in calls}
+                check(bool(torch.isfinite(lg.float()).all()),
+                      f"tp {leg['name']}: decode step {i} logits not finite")
+                if leg["keep"]:
+                    logits.append(lg.float().cpu())
+            check(FA.STATS["flash_attention"] == m["flash_launches_per_prefill"],
+                  f"tp {leg['name']}: decode launched flash_attention")
+    finally:
+        Model._attn_proj = orig
+    if step_s:
+        m.update(decode_ms_per_step=statistics.median(step_s) * 1e3,
+                 decode_collective_us_per_step=statistics.median(step_us),
+                 decode_collective_types=sorted(dtypes))
+    m["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else "not measured"
+    del params, cache, lg
+    if cuda:
+        torch.cuda.empty_cache()
+    return m, (logits if leg["keep"] else None)
+
+
+def tp_serve_rank(legs):
+    """Phase 17 in each rank: the ranks' units as one (1, ranks) mesh
+    whose ``model`` axis spans them, and each of ``legs`` served over it
+    (``tp_serve_leg``) under a ``CollectiveClock``."""
+    import torch
+    from repro_torch.distributed import procs
+    from repro_torch.distributed.meshes import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = procs.current()
+    us = list(world.units)
+    mesh = make_mesh((1, len(us)), ("data", "model"), devices=us)
+    check(mesh.n_model == len(us), f"tp: the model axis spans {mesh.n_model} ranks, not {len(us)}")
+    out = {"rank": world.rank, "device": str(world.device), "backend": world.backend}
+    with CollectiveClock(events=world.backend == "nccl") as tally:
+        for leg in legs:
+            out[leg["name"]] = tp_serve_leg(leg, mesh, tally)
+    return out
+
+
+def tp_cfg(arch, dtype, layers=None):
+    """``arch``'s config in ``dtype``, cut to ``layers`` when given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).replace(dtype=dtype)
+    return cfg.replace(num_layers=layers) if layers else cfg
+
+
+def tp_one_process(device, cfg, routes, B, P, steps, cap):
+    """The one-process run phase 17 holds the ranks to, on ``device``:
+    ``cfg`` with the same seeded weights, prefill and ``steps`` greedy decode steps through each
+    of ``routes`` ({name: attn_impl}; "k", the kernel route, sets the
+    tokens).  Returns (logits by route, the tokens fed, the kernel
+    route's prefill s after a warm-up one)."""
+    import torch
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.train import make_decode_step, make_prefill
+
+    models = {r: build_model(cfg, Runtime(attn_impl=impl, remat="none"))
+              for r, impl in routes.items()}
+    params = models["k"].init(torch.Generator(device=device).manual_seed(SEED))
+    batch = serve_batch(cfg, device, B, P)
+    out, caches, tokens = {r: [] for r in routes}, {}, []
+    with torch.inference_mode():
+        make_prefill(models["k"])(params, batch)
+        sync(device)
+        t0 = time.perf_counter()
+        make_prefill(models["k"])(params, batch)
+        sync(device)
+        prefill_s = time.perf_counter() - t0
+        for r, mdl in models.items():
+            lg, c = make_prefill(mdl)(params, batch)
+            caches[r] = pad_cache(c, cap)
+            out[r].append(lg.float().cpu())
+        tok = out["k"][0][:, -1].argmax(-1)[:, None]
+        for i in range(steps):
+            tokens.append(tok)
+            for r, mdl in models.items():
+                lg, caches[r] = make_decode_step(mdl)(params, caches[r], tok.to(device), P + i)
+                out[r].append(lg.float().cpu())
+            tok = out["k"][-1][:, -1].argmax(-1)[:, None]
+    del params, caches
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, tokens, prefill_s
+
+
+def tp_bounds(one, dtype):
+    """The end-to-end bounds on the prefill and the decode logits: phase
+    8's, the larger of the type's tolerance and SERVE_SPREAD_FACTOR times
+    the one-process plain routes' own spread (dense vs blocked) where
+    they ran; and that spread."""
+    tol = SERVE_TOL[dtype]
+    if "d" not in one:
+        return [tol, tol], None
+    spread = [rel_err(one["d"][0], one["p"][0]),
+              max(rel_err(a, b) for a, b in zip(one["d"][1:], one["p"][1:]))]
+    return [max(tol, SERVE_SPREAD_FACTOR * e) for e in spread], spread
+
+
+def tp_compare(name, ranks, one, lim):
+    """Each rank's logits of leg ``name`` against the one-process kernel
+    route's: the prefill's and the decode steps' largest rel. errors."""
+    errs = []
+    for r in ranks:
+        _, lg = r[name]
+        e = [rel_err(a, b) for a, b in zip(lg, one["k"])]
+        errs.append([e[0], max(e[1:]) if len(e) > 1 else None])
+    pre = max(e[0] for e in errs)
+    dec = max((e[1] for e in errs if e[1] is not None), default=None)
+    return {"prefill_rel_err": pre, "decode_max_rel_err": dec, "bound_prefill_decode": lim}
+
+
+def tp_ranks(device, m, cards):
+    """(backend, units) of ``m`` ranks: a card each over NCCL on several
+    cards; ``m`` gloo ranks of the one card, or of the CPU in a
+    rehearsal."""
+    import torch
+    from repro_torch.distributed.meshes import LogicalDevice
+
+    if device.type == "cuda" and cards > 1:
+        return "nccl", [LogicalDevice(i, torch.device("cuda", i)) for i in range(m)]
+    return "gloo", [LogicalDevice(i, device) for i in range(m)]
+
+
+def tp_run(device, workdir, tag, m, backend, rank_units, legs):
+    """``tp_serve_rank`` on ``rank_units`` over ``backend``; prints each
+    rank's metrics by leg and returns the ranks' results."""
+    from repro_torch.distributed import procs
+
+    t0 = time.perf_counter()
+    res = procs.spawn(tp_serve_rank, (legs,), units=rank_units,
+                      jobdir=str(workdir / tag), backend=backend, timeout=TP_TIMEOUT_S)
+    print(f"  {tag}: {legs[0]['cfg'].name} over {m} ranks ({backend}, cards "
+          f"{sorted({str(u.device) for u in rank_units})}) in {time.perf_counter() - t0:.1f} s")
+    for r in res:
+        for leg in legs:
+            lm = r[leg["name"]][0]
+            print(f"    rank {r['rank']} on {r['device']} {leg['name']}: "
+                  + " ".join(f"{k}={v!r}" for k, v in lm.items()))
+            check(lm["flash_launches_per_prefill"] == lm["layers"] or device.type != "cuda",
+                  f"{tag} {leg['name']}: rank {r['rank']} launched flash_attention "
+                  f"{lm['flash_launches_per_prefill']} times a prefill (want {lm['layers']})")
+    return res
+
+
+def phase_serve_tp(device, workdir, cards=None):
+    """Phase 17, cell ``serve_tp_dense_cards``: tensor-parallel serving of
+    the dense family over ranks, the ``model`` axis across them
+    (``make_prefill`` / ``make_decode_step`` over a mesh whose model group
+    is the ranks; each rank's weights its share of the reference's
+    Megatron specs; ``flash_attention`` on the rank's heads).
+
+    On one card: granite-8b at full width and depth over 2 ranks of the
+    card (gloo), bf16, B 4 x 2,048 seeded prompt tokens, a cache of 2,080
+    and 32 decode steps fed the one-process run's greedy tokens, held to
+    the one-process kernel route on the same weights at phase 8's bf16
+    bound (1.5x the one-process dense and blocked routes' own spread);
+    then float32 at TP_F32_LAYERS of 36 layers against 1e-4; and a
+    planted fault (rank 1 keeping its attention sublayers' partial sums),
+    which must fail the prefill check.  On several cards the same over
+    NCCL a rank a card, then qwen3-32b over 4 (or 2) cards, bf16: at
+    TP_BIG_ONE_LAYERS of 64 layers against one process on card 0, and at
+    full depth timed.  Each rank's flash_attention launches a prefill,
+    peak memory, bytes held and collectives (count, type and µs) are
+    printed; ``flash_attention`` is timed at the per-rank shapes
+    (``TP_FLASH``) beside SDPA.  Returns the metrics, the launches over the
+    ranks of each per-rank shape's bf16 prefill, and its timings."""
+    import torch
+
+    cuda = device.type == "cuda"
+    n = cards or (min(torch.cuda.device_count(), 4) if cuda else 1)
+    workdir.mkdir(parents=True, exist_ok=True)
+    out = {"cards": n}
+    shape = dict(B=SERVE_B, P=SERVE_P, cap=SERVE_CAP)
+    three = {"k": "pallas", "d": "dense", "p": "blocked"}
+    cfg_bf, cfg_f32 = tp_cfg(TP_ARCH, "bfloat16"), tp_cfg(TP_ARCH, "float32", TP_F32_LAYERS)
+    one_bf, tok_bf, out["one_process_prefill_s"] = tp_one_process(
+        device, cfg_bf, three, steps=SERVE_STEPS, **shape)
+    one_f32, tok_f32, _ = tp_one_process(device, cfg_f32, {"k": "pallas"}, steps=SERVE_STEPS,
+                                         **shape)
+    lim_bf, out["one_process_dense_vs_blocked"] = tp_bounds(one_bf, "bfloat16")
+    lim_f32, _ = tp_bounds(one_f32, "float32")
+    backend, rank_units = tp_ranks(device, TP_M, n)
+    base = dict(shape, keep=True, warm=backend == "nccl")
+    legs = [dict(base, name="bfloat16", cfg=cfg_bf, tokens=tok_bf),
+            dict(base, name="float32", cfg=cfg_f32, tokens=tok_f32),
+            dict(base, name="fault", cfg=cfg_f32, tokens=[], fault_rank=1, warm=False)]
+    tag = f"serve_tp_{TP_ARCH.replace('-', '_').replace('.', '_')}_mp{TP_M}"
+    res = tp_run(device, workdir, tag, TP_M, backend, rank_units, legs)
+    for name, one, lim in (("bfloat16", one_bf, lim_bf), ("float32", one_f32, lim_f32)):
+        c = out[name] = tp_compare(name, res, one, lim)
+        check(c["prefill_rel_err"] < lim[0] and c["decode_max_rel_err"] < lim[1],
+              f"tp {TP_ARCH} {name}: rel errs (prefill, decode) {c['prefill_rel_err']}, "
+              f"{c['decode_max_rel_err']} against one process, bounds {lim}")
+    f = out["fault"] = tp_compare("fault", res, one_f32, lim_f32)["prefill_rel_err"]
+    check(f >= max(lim_f32[0], lim_bf[0]),
+          f"tp {TP_ARCH}: the planted fault passed the prefill check ({f} < {lim_f32[0]})")
+    out["ranks"] = {r["rank"]: {leg: r[leg][0] for leg in ("bfloat16", "float32")} for r in res}
+    launches = {"granite_8b_mp2": sum(r["bfloat16"][0]["flash_launches_per_prefill"]
+                                      for r in res)}
+    print(f"  {tag}: " + " ".join(f"{k}={out[k]!r}" for k in
+                                  ("one_process_prefill_s", "one_process_dense_vs_blocked",
+                                   "bfloat16", "float32", "fault")))
+    if n >= 2:
+        m = 4 if n >= 4 else 2
+        cut = tp_cfg(TP_BIG_ARCH, "bfloat16", TP_BIG_ONE_LAYERS)
+        one_q, tok_q, out["qwen3_one_process_prefill_s"] = tp_one_process(
+            device, cut, three, steps=SERVE_STEPS, **shape)
+        lim_q, out["qwen3_dense_vs_blocked"] = tp_bounds(one_q, "bfloat16")
+        legs = [dict(shape, name="cut", cfg=cut, tokens=tok_q, keep=True, warm=False),
+                dict(shape, name="full", cfg=tp_cfg(TP_BIG_ARCH, "bfloat16"), tokens=tok_q,
+                     keep=False, warm=True)]
+        tag = f"serve_tp_qwen3_32b_mp{m}"
+        res = tp_run(device, workdir, tag, m, *tp_ranks(device, m, n), legs)
+        c = out["qwen3_cut"] = tp_compare("cut", res, one_q, lim_q)
+        check(c["prefill_rel_err"] < lim_q[0] and c["decode_max_rel_err"] < lim_q[1],
+              f"tp {TP_BIG_ARCH} at {TP_BIG_ONE_LAYERS} layers: rel errs {c} against one "
+              "process")
+        out["qwen3_full"] = {r["rank"]: r["full"][0] for r in res}
+        if m == 4:
+            launches["qwen3_32b_mp4"] = sum(r["full"][0]["flash_launches_per_prefill"]
+                                            for r in res)
+        print(f"  {tag}: qwen3_cut={c!r}")
+    times = {}
+    if cuda:
+        for shape, case in TP_FLASH.items():
+            times[shape] = t = time_flash(device, "bfloat16", case=case)
+            print(f"  flash_attention {shape} at {case} bfloat16: " + " ".join(
+                f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
+    return out, launches, times
 
 
 def main() -> int:
@@ -3746,6 +4106,21 @@ def main() -> int:
     print(f"  multi-card co-scheduling launches: "
           f"score_reduce={dp['cosched']['score_reduce_launches']}")
     lap("16")
+    print("== phase 17: tensor-parallel serving over ranks, serve_tp_dense_cards")
+    torch.cuda.empty_cache()
+    _, tp_launches, tp_flash = phase_serve_tp(device, ROOT / "build" / "serve_tp")
+    print(f"  tensor-parallel serving launches (over the ranks): flash_attention={tp_launches}")
+    for shape, n in tp_launches.items():
+        check(n > 0, f"flash_attention ({shape}) was never launched on the ranks' heads")
+        t = tp_flash[shape]
+        kernels.append(dict(
+            name=f"flash_attention_{shape}", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:127", launches=n,
+            max_abs_err=model_err["flash_by_case"][TP_FLASH[shape], "bfloat16"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    lap("17")
     print(f"  phase_seconds={laps} total_s={time.perf_counter() - t_start:.1f}")
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -8,8 +8,19 @@ does nothing.  With rules it does nothing either: on a mesh of one
 process the constrained layout and the unconstrained one are the same
 tensor, and on a mesh over ranks each rank already holds its own rows of
 the batch while the model axis lies within it (``distributed/meshes.py``),
-so the tags are kept for tensor parallelism across cards.  The rules and the mesh are thread-local,
-so co-scheduled jobs training in threads do not see each other's.
+so the tags are kept as the reference's.  The rules and the mesh are
+thread-local, so co-scheduled jobs training in threads do not see each
+other's.
+
+Tensor parallelism across ranks (a mesh whose ``model`` axis spans
+ranks, ``distributed/meshes.py``) makes GSPMD's collectives explicit with
+two autograd functions tied to ``current_mesh()``'s model group, the
+Megatron pair: :func:`enter_model` (identity forward, all-reduce of the
+gradient backward) where a replicated tensor goes into a region computed
+on the rank's share of a split leaf, and :func:`leave_model` (all-reduce
+forward, identity backward) where the region's partial sums come out.
+Without a model group both return their input, so the model code stays
+mesh-agnostic, as the reference's does.
 """
 from __future__ import annotations
 
@@ -18,6 +29,9 @@ import threading
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.meshes import all_reduce, gather_dim
 
 _tls = threading.local()
 
@@ -59,3 +73,78 @@ def mesh_context(mesh):
 
 def current_mesh():
     return getattr(_tls, "mesh", None)
+
+
+def model_group():
+    """The model group of ``current_mesh()`` (the ranks of this rank's
+    row), or None without one."""
+    mesh = current_mesh()
+    return None if mesh is None else getattr(mesh, "model_group", None)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering a model-parallel region: itself, its gradient
+    summed over the model group (each rank's region gives a partial
+    one)."""
+    group = model_group()
+    if group is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _Enter.apply(x, group)
+
+
+def leave_model(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a rank's partial sum out of a model-parallel region, summed
+    over the model group (in ``x``'s type); its gradient passes as it is."""
+    group = model_group()
+    if group is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Leave.apply(x, group)
+    return all_reduce(x, group)
+
+
+def model_rank() -> int:
+    """This rank's position along ``model`` in ``current_mesh()``'s model
+    group; 0 without one."""
+    return current_mesh().model_index if model_group() is not None else 0
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the model group (no gradient);
+    ``x`` itself without one."""
+    group = model_group()
+    if group is None:
+        return x
+    x = x.detach().contiguous().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The model group's shares ``x`` joined along ``dim`` in rank order
+    (all-gather, no gradient); ``x`` itself without a model group."""
+    group = model_group()
+    if group is None:
+        return x
+    return gather_dim(x, dim % x.dim(), group, current_mesh().n_model)

@@ -19,17 +19,20 @@ runs one SPMD program over each.  Here:
     a leaf under a sharding puts it whole on that card, and a step runs
     the global batch there as one tensor -- the unsharded result of the
     reference's SPMD program over ``(data, model)``.
-  - A mesh whose rows are **ranks** of a job (``distributed/procs.py``:
-    one process per row) holds that job's process group.  Placing a leaf
-    under a spec that names ``data`` gives this rank its share along that
-    dimension; a spec without ``data`` stays whole (replicated).  The
-    collectives the train step needs are methods of
-    :class:`NamedSharding` and :class:`Mesh`.  Inside a worker, a mesh
-    over the job's units is such a mesh; outside, a mesh whose rows lie
-    on several cards describes the ranks a job will start
-    (``train/loop.py``).
-  - A ``model`` axis across cards (or ranks) is not implemented and
-    raises.
+  - A mesh whose units are **ranks** of a job (``distributed/procs.py``:
+    one process per unit) holds that job's process group.  Placing a
+    leaf under a spec that names ``data`` gives this rank its share along
+    that dimension; a spec without ``data`` stays whole (replicated).
+    Where the ``model`` axis is longer than 1 it spans ranks: tensor
+    parallelism, the Megatron layout of the reference's specs.  A spec's
+    ``model`` dimension is split over the rank's model group (the ranks
+    of its row), its data dimension over its data group (the ranks at its
+    position along ``model``); the model code enters and leaves its
+    parallel regions through ``distributed/ctx.py``.  The collectives the
+    train step needs are methods of :class:`NamedSharding` and
+    :class:`Mesh`.  Inside a worker, a mesh over the job's units is such
+    a mesh; outside, a mesh whose units lie on several cards describes
+    the ranks a job will start (``train/loop.py``: one process per unit).
 * an :class:`AbstractMesh` holds shape and axis names only
   (``compat.abstract_mesh``'s counterpart; ``launch/mesh.py``'s
   production meshes).
@@ -102,14 +105,22 @@ class AbstractMesh:
 
 class Mesh(AbstractMesh):
     """An ndarray of units with named axes: logical units of one card, or
-    one row of units per rank of a job (see the module docstring).
+    the units of a job's ranks (see the module docstring).
 
     ``device``: the card (or the CPU) this process computes on; None where
-    this process holds no row of the mesh, or outside the ranks of a mesh
-    over several cards.  ``ranks``: the job's rank of each row, None on a
-    mesh of one process.  ``index``: this process's row, None outside.
-    ``group``: the rows' process group where this process is one of them,
-    else None."""
+    this process holds no unit of the mesh, or outside the ranks of a mesh
+    over several cards.  ``ranks``: the job's rank of each unit of the
+    mesh, in the order of its rows; None on a mesh of one process.
+    ``index``: this process's place in ``ranks``, None outside.
+    ``group``: the process group over ``ranks`` where this process is one
+    of them, else None.
+
+    Over ranks, each process also has two sub-groups: its **data group**
+    (``data_group``: the ranks at its position along ``model``, one a row;
+    ``data_index`` its row) and, where the ``model`` axis spans ranks, its
+    **model group** (``model_group``: the ranks of its row; ``model_index``
+    its position along ``model``).  Without tensor parallelism the data
+    group is ``group``, ``model_group`` is None and ``model_index`` 0."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
         devices = np.asarray(devices, dtype=object)
@@ -120,39 +131,40 @@ class Mesh(AbstractMesh):
         self.rows: List[Tuple[LogicalDevice, ...]] = self._rows()
         self.ranks: Optional[Tuple[int, ...]] = None
         self.index: Optional[int] = None
-        self.group = None
+        self.group = self.data_group = self.model_group = None
+        self.data_index: Optional[int] = None
+        self.model_index: Optional[int] = None
         self.device: Optional[torch.device] = None
         world = procs.current()
         rank_of = world.rank_of() if world is not None else {}
         if rank_of and all(u in rank_of for u in devices.flat):
             self._over_ranks(world, rank_of)
-            return
-        spanning = [sorted(map(str, c)) for c in ({u.device for u in row} for row in self.rows)
-                    if len(c) > 1]
-        if spanning:
-            raise NotImplementedError(
-                f"a model axis across cards ({spanning[0]}) is not implemented: each row of "
-                "a mesh (its units along the model axis) lies on one card; the data axis "
-                "may span cards, one rank per row")
-        if not self.spans_cards:
+        elif not self.spans_cards:
             self.device = self.rows[0][0].device
 
     def _over_ranks(self, world, rank_of) -> None:
-        ranks = []
-        for row in self.rows:
-            rs = {rank_of[u] for u in row}
-            if len(rs) != 1:
-                raise NotImplementedError(
-                    f"a model axis across ranks {sorted(rs)} is not implemented: each row "
-                    "of a mesh (its units along the model axis) lies on one rank")
-            ranks.append(rs.pop())
+        row_ranks = [[rank_of[u] for u in row] for row in self.rows]
+        ranks = [r for rs in row_ranks for r in rs]
         if ranks != sorted(set(ranks)):
-            raise ValueError(f"the mesh's rows are ranks {ranks}: distinct and increasing")
+            raise ValueError(f"the mesh's ranks are {ranks}: distinct and increasing")
         self.ranks = tuple(ranks)
-        if world.rank in ranks:
-            self.index = ranks.index(world.rank)
-            self.group = world.group(ranks)
-            self.device = world.device
+        m = len(row_ranks[0])
+        # every rank of the mesh creates every sub-group, in this order; a
+        # model group of one rank is none
+        group = world.group(ranks)
+        if m > 1:
+            model = [world.group(rs) for rs in row_ranks]
+            data = [world.group(col) for col in zip(*row_ranks)]
+        if world.rank not in ranks:
+            return
+        self.index = ranks.index(world.rank)
+        self.group = group
+        self.device = world.device
+        self.data_index, self.model_index = divmod(self.index, m)
+        self.data_group = group
+        if m > 1:
+            self.model_group = model[self.data_index]
+            self.data_group = data[self.model_index]
 
     def _rows(self) -> List[Tuple[LogicalDevice, ...]]:
         if "model" not in self.axis_names:
@@ -171,24 +183,37 @@ class Mesh(AbstractMesh):
         the one process of a mesh without ranks."""
         return self.group is None or self.index == 0
 
+    @property
+    def n_data(self) -> int:
+        """The ranks of a data group: the mesh's rows."""
+        return len(self.rows)
+
+    @property
+    def n_model(self) -> int:
+        """The ranks of a model group: the ``model`` axis where it spans
+        ranks, else 1."""
+        return 1 if self.model_group is None else self.shape["model"]
+
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the ranks (all-reduce); ``t`` itself on a mesh
-        of one process."""
-        if self.group is None:
-            return t
-        t = t.clone()
-        dist.all_reduce(t, group=self.group)
-        return t
+        """``t`` summed over this rank's data group (all-reduce); ``t``
+        itself on a mesh of one process."""
+        return all_reduce(t, self.data_group, self.n_data)
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` averaged over the ranks."""
-        return t if self.group is None else self.sum(t) / len(self.ranks)
+        """``t`` averaged over this rank's data group."""
+        return t if self.data_group is None else self.sum(t) / self.n_data
+
+    def model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over this rank's model group; ``t`` itself without
+        one."""
+        return all_reduce(t, self.model_group, self.n_model)
 
     def barrier(self) -> None:
-        """Wait until every rank has come here: an all-reduce of one
-        element on the ranks' own devices, the same for either backend."""
+        """Wait until every rank of the mesh has come here: an all-reduce
+        of one element on the ranks' own devices, the same for either
+        backend."""
         if self.group is not None:
-            self.sum(torch.zeros(1, device=self.device))
+            all_reduce(torch.zeros(1, device=self.device), self.group, len(self.ranks))
 
 
 # the names torch.distributed gives these two in its newer releases
@@ -196,73 +221,133 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
+def all_reduce(t: torch.Tensor, group, n: Optional[int] = None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (a new tensor, in ``t``'s
+    type); ``t`` itself without a group, or where ``n``, the group's rank
+    count, is 1."""
+    if group is None or n == 1:
+        return t
+    t = t.contiguous().clone()
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def gather_dim(t: torch.Tensor, d: int, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' shares ``t`` of ``group`` joined along dimension
+    ``d`` in rank order (all-gather)."""
+    x = t.movedim(d, 0).contiguous()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    _all_gather(out, x, group=group)
+    return out.movedim(0, d).contiguous()
+
+
 @dataclass(frozen=True)
 class NamedSharding:
     """A spec on a mesh.  On a mesh of one process, placing a tensor puts
     it whole on the mesh's card; on a mesh over ranks, the dimension whose
-    entry names the data axes (:attr:`dim`) is split over the ranks."""
+    entry names the data axes (:attr:`dim`) is split over the data group
+    and, where the ``model`` axis spans ranks, the one naming ``model``
+    (:attr:`mdim`) over the model group."""
 
     mesh: Mesh
     spec: P
 
+    def _named(self, i: int) -> set:
+        s = self.spec[i]
+        return set(s) if isinstance(s, tuple) else {s}
+
     @property
     def dim(self) -> Optional[int]:
-        """The dimension split over the mesh's ranks; None when the spec
+        """The dimension split over the data group; None when the spec
         names no data axis or this process is not one of the ranks."""
         if self.mesh.group is None:
             return None
         rows = {a for a in self.mesh.axis_names if a != "model"}
-        for i, s in enumerate(self.spec):
-            named = set(s) if isinstance(s, tuple) else {s}
+        for i in range(len(self.spec)):
+            named = self._named(i)
             if named & rows:
                 if not rows <= named:
                     raise NotImplementedError(
                         f"{self.spec} splits dimension {i} over {sorted(named & rows)} of the "
                         f"rows' axes {sorted(rows)}: a spec splits over all of them or none")
+                if "model" in named and self.mesh.model_group is not None:
+                    raise NotImplementedError(
+                        f"{self.spec} splits dimension {i} over both the data and the model "
+                        "axes")
                 return i
         return None
 
-    def _share(self, n_dim: int) -> int:
-        n = len(self.mesh.ranks)
+    @property
+    def mdim(self) -> Optional[int]:
+        """The dimension split over the model group; None when the spec
+        names no ``model`` or the ``model`` axis lies within the rank."""
+        if self.mesh.model_group is None:
+            return None
+        for i in range(len(self.spec)):
+            if "model" in self._named(i):
+                return i
+        return None
+
+    @property
+    def data_part(self) -> "NamedSharding":
+        """This sharding without its ``model`` split: how a model-local
+        tensor (the rank's share along ``model``) is split over the data
+        group."""
+        spec = P(*(None if s == "model" else s for s in self.spec))
+        return NamedSharding(self.mesh, spec)
+
+    @staticmethod
+    def _share(n_dim: int, n: int) -> int:
         if n_dim % n:
             raise ValueError(f"a dimension of {n_dim} does not split over {n} ranks")
         return n_dim // n
 
     def place(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` (the whole leaf) as this process holds it: whole on its
-        device, or this rank's share of dimension :attr:`dim` (a copy)."""
-        d = self.dim
-        if d is None:
-            return t.to(self.mesh.device)
-        k = self._share(t.shape[d])
-        return t.narrow(d, self.mesh.index * k, k).to(
-            self.mesh.device, copy=True, memory_format=torch.contiguous_format)
+        device, or this rank's share of dimensions :attr:`dim` and
+        :attr:`mdim` (a copy)."""
+        mesh = self.mesh
+        if mesh.device is None:
+            raise RuntimeError(f"this process holds no unit of the mesh {mesh.shape} over "
+                               f"{sorted({str(u.device) for u in mesh.devices.flat})}")
+        cuts = [(d, i, n) for d, i, n in ((self.dim, mesh.data_index, mesh.n_data),
+                                          (self.mdim, mesh.model_index, mesh.n_model))
+                if d is not None]
+        if not cuts:
+            return t.to(mesh.device)
+        for d, i, n in cuts:
+            k = self._share(t.shape[d], n)
+            t = t.narrow(d, i * k, k)
+        return t.to(mesh.device, copy=True, memory_format=torch.contiguous_format)
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
-        """The whole leaf from the ranks' shares (all-gather); ``t`` itself
-        where it is not split."""
-        d = self.dim
-        if d is None:
-            return t
-        x = t.movedim(d, 0).contiguous()
-        out = x.new_empty((len(self.mesh.ranks) * x.shape[0], *x.shape[1:]))
-        _all_gather(out, x, group=self.mesh.group)
-        return out.movedim(0, d).contiguous()
+        """The whole leaf from the ranks' shares (all-gather over the data
+        group, then the model group); ``t`` itself where it is not
+        split."""
+        mesh = self.mesh
+        if self.dim is not None:
+            t = gather_dim(t, self.dim, mesh.data_group, mesh.n_data)
+        if self.mdim is not None:
+            t = gather_dim(t, self.mdim, mesh.model_group, mesh.n_model)
+        return t
 
     def reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The ranks' mean of their whole leaves ``t``, as this process
-        holds it: this rank's share where the leaf is split
-        (reduce-scatter), the whole mean where it is not (all-reduce);
-        summed in ``t``'s type.  ``t`` itself on a mesh of one process."""
-        if self.mesh.group is None:
+        """The data group's mean of its ranks' model-local leaves ``t``
+        (each rank's gradient of its share along ``model``), as this
+        process holds it: this rank's share where the leaf is split over
+        the data axes (reduce-scatter), the whole mean where it is not
+        (all-reduce); summed in ``t``'s type.  ``t`` itself on a mesh of
+        one process."""
+        mesh = self.mesh
+        if mesh.group is None:
             return t
-        n = len(self.mesh.ranks)
+        n = mesh.n_data
         d = self.dim
         if d is None:
-            return self.mesh.sum(t) / n
+            return mesh.sum(t) / n
         x = t.movedim(d, 0).contiguous()
-        out = x.new_empty((self._share(x.shape[0]), *x.shape[1:]))
-        _reduce_scatter(out, x, group=self.mesh.group)
+        out = x.new_empty((self._share(x.shape[0], n), *x.shape[1:]))
+        _reduce_scatter(out, x, group=mesh.data_group)
         return (out / n).movedim(0, d).contiguous()
 
 

@@ -18,7 +18,11 @@ A worker that raises fails the whole job: the others are stopped and
 a whole.
 
 Inside a worker, :func:`current` gives the :class:`World` it belongs to,
-which ``distributed/meshes.py`` reads to build meshes over ranks.
+which ``distributed/meshes.py`` reads to build meshes over ranks.  A rank
+holds one unit of a mesh: where the mesh's ``model`` axis is longer than
+1 it spans ranks (tensor parallelism), and
+:class:`~repro_torch.distributed.meshes.Mesh` gives each rank its model
+group and its data group.
 """
 from __future__ import annotations
 
@@ -39,33 +43,37 @@ import torch.multiprocessing as mp
 
 @dataclass(frozen=True)
 class World:
-    """The job a worker process belongs to: its rank, the units each rank
-    holds (``rows[r]``, all on rank r's device) and the backend."""
+    """The job a worker process belongs to: its rank, the unit each rank
+    holds (``units[r]``, on rank r's device) and the backend."""
 
     rank: int
-    rows: Tuple[Tuple[Any, ...], ...]
+    units: Tuple[Any, ...]
     backend: str
 
     @property
     def size(self) -> int:
-        return len(self.rows)
+        return len(self.units)
 
     @property
     def device(self) -> torch.device:
-        return self.rows[self.rank][0].device
+        return self.units[self.rank].device
 
     def rank_of(self) -> Dict[Any, int]:
         """Each unit's rank."""
-        return {u: r for r, row in enumerate(self.rows) for u in row}
+        return {u: r for r, u in enumerate(self.units)}
 
     def group(self, ranks: Sequence[int]):
         """The process group over ``ranks`` (increasing): the job's own
-        group when it is all of them, else a new group that only its
-        members create."""
-        ranks = list(ranks)
-        if ranks == list(range(self.size)):
+        group when it is all of them, else a group that only its members
+        take part in creating (None on the others).  A group is created
+        once a process and then reused, so meshes built again over the
+        same ranks (a sub-mesh, a rebuild after a failure) share it."""
+        ranks = tuple(ranks)
+        if ranks == tuple(range(self.size)):
             return dist.group.WORLD
-        return dist.new_group(ranks, use_local_synchronization=True)
+        if ranks not in _GROUPS:
+            _GROUPS[ranks] = dist.new_group(list(ranks), use_local_synchronization=True)
+        return _GROUPS[ranks]
 
 
 # seconds a rank that has reported may take to exit before it is stopped
@@ -74,18 +82,13 @@ _EXIT_GRACE_S = 10.0
 # The world of this worker process; None outside one.  A worker runs one
 # job, so this is process state, as torch.distributed's default group is.
 _WORLD: Optional[World] = None
+# the process groups this worker has created, by their ranks
+_GROUPS: Dict[Tuple[int, ...], Any] = {}
 
 
 def current() -> Optional[World]:
     """The :class:`World` of this worker process, or None outside one."""
     return _WORLD
-
-
-def _row_device(row) -> torch.device:
-    devs = {u.device for u in row}
-    if len(devs) != 1:
-        raise ValueError(f"a rank's units lie on {len(devs)} devices: {row}")
-    return devs.pop()
 
 
 def backend_for(devices: Sequence[torch.device], backend: Optional[str] = None) -> str:
@@ -112,17 +115,17 @@ def backend_for(devices: Sequence[torch.device], backend: Optional[str] = None) 
     return backend
 
 
-def _worker(rank, rows, backend, store_path, run_dir, timeout, threads, fn, args, reports):
+def _worker(rank, units, backend, store_path, run_dir, timeout, threads, fn, args, reports):
     global _WORLD
     try:
         torch.set_num_threads(threads)
-        dev = _row_device(rows[rank])
+        dev = units[rank].device
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group(
-            backend, store=dist.FileStore(store_path, len(rows)), rank=rank,
-            world_size=len(rows), timeout=datetime.timedelta(seconds=timeout))
-        _WORLD = World(rank, rows, backend)
+            backend, store=dist.FileStore(store_path, len(units)), rank=rank,
+            world_size=len(units), timeout=datetime.timedelta(seconds=timeout))
+        _WORLD = World(rank, units, backend)
         out = fn(*args)
         if out is not None:
             torch.save(out, os.path.join(run_dir, f"result{rank}.pt"))
@@ -132,29 +135,30 @@ def _worker(rank, rows, backend, store_path, run_dir, timeout, threads, fn, args
         reports.put((rank, None))
     finally:
         _WORLD = None
+        _GROUPS.clear()
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def spawn(fn: Callable, args: tuple = (), *, rows: Sequence[Sequence[Any]], jobdir: str,
+def spawn(fn: Callable, args: tuple = (), *, units: Sequence[Any], jobdir: str,
           backend: Optional[str] = None, timeout: float = 1800.0) -> List[Any]:
-    """Run ``fn(*args)`` in one process per entry of ``rows`` (rank r holds
-    the units ``rows[r]``, all on one device) and return each rank's
+    """Run ``fn(*args)`` in one process per entry of ``units`` (rank r
+    holds the unit ``units[r]``, on its device) and return each rank's
     return value, by rank (None where it returned None).  ``fn`` and
     ``args`` are pickled, so ``fn`` is a module-level function.  The
     results are loaded onto the CPU.  Raises with the first failing
     rank's traceback, when a rank dies without a result, or after
     ``timeout`` seconds; the job's processes are stopped either way."""
-    rows = tuple(tuple(r) for r in rows)
-    backend = backend_for([_row_device(r) for r in rows], backend)
-    world = len(rows)
+    units = tuple(units)
+    backend = backend_for([u.device for u in units], backend)
+    world = len(units)
     os.makedirs(jobdir, exist_ok=True)
     run_dir = tempfile.mkdtemp(prefix=".ranks-", dir=jobdir)
     ctx = mp.get_context("spawn")
     reports = ctx.Queue()
     procs = [ctx.Process(
         target=_worker, name=f"rank{r}", daemon=True,
-        args=(r, rows, backend, os.path.join(run_dir, "store"), run_dir, timeout,
+        args=(r, units, backend, os.path.join(run_dir, "store"), run_dir, timeout,
               torch.get_num_threads(), fn, args, reports)) for r in range(world)]
     deadline = time.monotonic() + timeout
     try:

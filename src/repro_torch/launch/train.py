@@ -6,10 +6,12 @@
 
 Runs on the card unless ``--device cpu`` is given (the kernels' plain
 versions on the CPU); without a card and without ``--device cpu`` it
-exits 2.  On a node with N cards it trains data-parallel over them, one
-process per card over NCCL (``train/loop.py``); ``--model-par`` above 1
-across cards raises.  ``REPRO_HOST_DEVICES=N`` presents N logical units
-of one device instead (``distributed/meshes.py``).  ``--smoke`` swaps in the reduced config.
+exits 2.  On a node with N cards it trains over them, one process per
+card over NCCL (``train/loop.py``): data-parallel, and tensor-parallel
+over ``--model-par`` cards in each row (the dense, vision and
+encoder-decoder families; MoE, SSM and hybrid ones raise).
+``REPRO_HOST_DEVICES=N`` presents N logical units of one device instead
+(``distributed/meshes.py``).  ``--smoke`` swaps in the reduced config.
 ``--fail-at`` injects a device failure to exercise checkpoint/restart and
 elastic recovery.  ZeRO specs, grad accumulation, int8 optimizer state
 and gradient compression are all reachable from here.

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.distributed.ctx import enter_model, leave_model, model_max
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -122,9 +124,28 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, dtype) -> dict:
     }
 
 
-def swiglu_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu_apply(p: dict, x: torch.Tensor, region: bool = False) -> torch.Tensor:
+    """The SwiGLU MLP.  ``region``: ``p`` holds this rank's columns of
+    ``gate``/``up`` and rows of ``down`` (tensor parallelism): ``x``
+    enters the model-parallel region and the output leaves it after
+    ``down``."""
+    if region:
+        x = enter_model(x)
     g = silu(x @ p["gate"])
-    return (g * (x @ p["up"])) @ p["down"]
+    out = (g * (x @ p["up"])) @ p["down"]
+    return leave_model(out) if region else out
+
+
+def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor, lo: int) -> torch.Tensor:
+    """Rows ``tokens`` of an embedding split by rows over the model group:
+    ``table`` holds rows ``[lo, lo + len(table))``; each rank looks up the
+    tokens it holds (zeros elsewhere) and the model group sums them."""
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+    return leave_model(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +159,28 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     target = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - target
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, lo: int,
+                                 z_loss: float = 0.0) -> torch.Tensor:
+    """``softmax_cross_entropy`` of logits split over the model group by
+    vocabulary columns: ``logits`` (..., V/m) are this rank's columns
+    ``[lo, lo + V/m)``.  The max, the sum of exps and the target logit are
+    each reduced over the model group; the whole logits are never
+    gathered.  Every rank gets the same loss, and its gradient only for
+    its own columns."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    m = model_max(logits.amax(dim=-1))
+    lse = m + torch.log(leave_model(torch.exp(logits - m[..., None]).sum(dim=-1)))
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < n)
+    target = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    target = leave_model(torch.where(inside, target, torch.zeros_like(target)))
     loss = lse - target
     if z_loss:
         loss = loss + z_loss * torch.square(lse)

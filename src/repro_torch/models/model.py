@@ -40,7 +40,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import (
@@ -51,7 +51,15 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.ctx import constrain, current_mesh
+from repro_torch.distributed.ctx import (
+    constrain,
+    current_mesh,
+    enter_model,
+    gather_model,
+    leave_model,
+    model_group,
+    model_rank,
+)
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.attention import attention
@@ -66,6 +74,8 @@ from repro_torch.models.common import (
     softmax_cross_entropy,
     swiglu_apply,
     swiglu_init,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_embed,
 )
 
 
@@ -208,13 +218,19 @@ class Model:
             "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dt),
         }
 
-    def init(self, rng: Union[int, torch.Generator] = 0, *, device=None) -> dict:
+    def init(self, rng: Union[int, torch.Generator] = 0, *, device=None,
+             place: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> dict:
         """Random parameters drawn from ``rng`` straight on the device.
         ``rng`` is a seed (the parameters go to ``device``, ``"cuda"``
         when not given) or a ``torch.Generator`` (they go to its device;
         a ``device`` that names another raises).  The numbers are not the
         reference's (another generator); carry the reference's
-        parameters with ``core.carry.params_from_numpy``."""
+        parameters with ``core.carry.params_from_numpy``.  ``place(path,
+        leaf)``, when given, takes each leaf as it is drawn (a layer's
+        leaf before the layers are stacked, its path the stacked leaf's)
+        and returns what is kept of it -- a rank's share
+        (``train.step.placed_params``) -- so the whole parameters are never
+        held at once; the numbers are those of the whole draw."""
         cfg, dt = self.cfg, self.dtype
         gen = rng
         if isinstance(gen, torch.Generator):
@@ -228,9 +244,16 @@ class Model:
         else:
             dev = resolve_device("cuda" if device is None else device)
             gen = torch.Generator(device=dev).manual_seed(int(rng))
-        embed = embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
+        keep = (lambda path, t: t) if place is None else place
+
+        def drawn(prefix, tree):
+            return {k: (drawn(f"{prefix}/{k}", v) if isinstance(v, dict)
+                        else keep(f"{prefix}/{k}", v)) for k, v in tree.items()}
+
+        embed = keep("embed", embed_init(gen, cfg.vocab_size, cfg.d_model, dt))
         if cfg.num_layers:
-            blocks = _stack([self._init_block(gen) for _ in range(cfg.num_layers)])
+            blocks = _stack([drawn("blocks", self._init_block(gen))
+                             for _ in range(cfg.num_layers)])
         else:  # no layers (the dry-run's 0-layer variant): leaves of leading extent 0
             blocks = _tmap(lambda x: x.new_empty((0, *x.shape)), self._init_block(gen))
         params: Dict[str, Any] = {
@@ -239,27 +262,98 @@ class Model:
             "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
+            params["lm_head"] = keep("lm_head", dense_init(gen, cfg.d_model, cfg.vocab_size, dt))
         if cfg.is_encoder_decoder:
             params["enc_blocks"] = _stack(
-                [self._init_enc_block(gen) for _ in range(cfg.num_encoder_layers)])
+                [drawn("enc_blocks", self._init_enc_block(gen))
+                 for _ in range(cfg.num_encoder_layers)])
             params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=dt, device=dev)
         return params
 
     # ==================================================================
     # Sublayers
     # ==================================================================
-    def _qkv(self, attn_bp: dict, h, positions):
+    # ------------------------------------------------------------------
+    # Tensor parallelism: a sublayer whose leaves the specs split holds
+    # the rank's heads (or FFN columns); the head counts come from its
+    # tensors, not from ``cfg``.
+    # ------------------------------------------------------------------
+    def _split(self, n_local: int, n_whole: int) -> bool:
+        """Whether a leaf of ``n_local`` columns is the rank's share of
+        ``n_whole``: a model-parallel region, which needs the model group
+        of ``current_mesh()``."""
+        if n_local == n_whole:
+            return False
+        if model_group() is None:
+            raise RuntimeError(
+                f"a leaf of {n_local} of {n_whole} columns outside a mesh whose model axis "
+                "spans ranks: run it under distributed.ctx.mesh_context")
+        return True
+
+    def _kv_span(self, n_q: int) -> Tuple[int, int]:
+        """(first, count) of the global KV heads that the rank's ``n_q``
+        query heads read where the specs split the query heads but leave
+        the KV heads whole (GQA with fewer KV heads than the model axis):
+        query head i reads KV head i // G, as on one process."""
+        cfg = self.cfg
+        G = cfg.num_heads // cfg.num_kv_heads
+        if n_q % G and G % n_q:
+            raise NotImplementedError(
+                f"{n_q} query heads a rank over groups of {G}: a rank's heads span whole "
+                "groups or lie in one")
+        return model_rank() * n_q // G, max(n_q // G, 1)
+
+    def _attn_split(self, p: dict) -> bool:
+        """Whether the specs split an attention sublayer ``p`` over the
+        model group (its query heads)."""
+        return self._split(p["wq"].shape[-1], self.cfg.q_dim)
+
+    def _kv_weights(self, p: dict):
+        """``wk``/``wv`` for the rank's query heads: as they are where the
+        specs split them alike (or nothing is split), else the columns of
+        the KV heads they read, out of the whole leaves, which enter the
+        region (each rank's gradient of them is partial)."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
-        B, S, _ = h.shape
-        x = rms_norm(h, attn_bp["ln"], cfg.norm_eps)
-        q = (x @ attn_bp["wq"]).reshape(B, S, cfg.num_heads, hd)
-        k = (x @ attn_bp["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-        v = (x @ attn_bp["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+        wk, wv = p["wk"], p["wv"]
+        n_q = p["wq"].shape[-1] // hd
+        if (wk.shape[-1] // hd) * cfg.num_heads == n_q * cfg.num_kv_heads:
+            return wk, wv
+        lo, n = self._kv_span(n_q)
+        return (enter_model(wk)[:, lo * hd:(lo + n) * hd],
+                enter_model(wv)[:, lo * hd:(lo + n) * hd])
+
+    def _attn_proj(self, o, p: dict):
+        """The attention output ``o`` (B, S, H_rank, hd) through the
+        sublayer's ``wo``; where the specs split it, the rank's rows of
+        ``wo``, and the partial sums leave the region."""
+        out = constrain(o.reshape(*o.shape[:2], -1), "attn_out") @ p["wo"]
+        return leave_model(out) if self._attn_split(p) else out
+
+    def _attn_in(self, p: dict, h):
+        """``h`` through an attention sublayer's pre-norm, entering the
+        model-parallel region where the specs split the sublayer."""
+        x = rms_norm(h, p["ln"], self.cfg.norm_eps)
+        return enter_model(x) if self._attn_split(p) else x
+
+    def _project_qkv(self, p: dict, x):
+        """q, k, v of the rank's heads (all heads on one process)."""
+        hd = self.cfg.resolved_head_dim
+        B, S, _ = x.shape
+        wk, wv = self._kv_weights(p)
+        return ((x @ p["wq"]).reshape(B, S, -1, hd), (x @ wk).reshape(B, S, -1, hd),
+                (x @ wv).reshape(B, S, -1, hd))
+
+    def _qkv(self, attn_bp: dict, h, positions):
+        """The rank's q, k, v (all heads on one process)."""
+        cfg = self.cfg
+        q, k, v = self._project_qkv(attn_bp, self._attn_in(attn_bp, h))
         if cfg.qk_norm:
-            q = head_rms_norm(q, attn_bp["q_norm"], cfg.norm_eps)
-            k = head_rms_norm(k, attn_bp["k_norm"], cfg.norm_eps)
+            qn, kn = attn_bp["q_norm"], attn_bp["k_norm"]
+            if self._attn_split(attn_bp):  # whole leaves on the rank's heads
+                qn, kn = enter_model(qn), enter_model(kn)
+            q = head_rms_norm(q, qn, cfg.norm_eps)
+            k = head_rms_norm(k, kn, cfg.norm_eps)
         if cfg.rope_theta > 0:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
@@ -280,8 +374,11 @@ class Model:
     def _attn_sublayer(self, attn_bp, h, *, is_global: bool, positions):
         q, k, v = self._qkv(attn_bp, h, positions)
         o = self._self_attention(q, k, v, is_global=is_global)
-        o = constrain(o.reshape(*h.shape[:2], self.cfg.q_dim), "attn_out")
-        return o @ attn_bp["wo"]
+        return self._attn_proj(o, attn_bp)
+
+    def _mlp(self, p, x):
+        """The dense FFN, a model-parallel region where the specs split it."""
+        return swiglu_apply(p, x, self._split(p["gate"].shape[-1], self.cfg.d_ff))
 
     def _mlp_sublayer(self, bp, h):
         cfg = self.cfg
@@ -297,23 +394,31 @@ class Model:
             return moe_mod.moe_apply(bp["moe"], x, cfg,
                                      capacity_factor=self.rt.capacity_factor)
         x = rms_norm(h, bp["mlp_ln"], cfg.norm_eps)
-        return swiglu_apply(bp["mlp"], x)
+        return self._mlp(bp["mlp"], x)
 
     def _ssm_prenorm(self, bp, h):
         ln = bp["ssm_ln"] if "ssm_ln" in bp else bp["attn"]["ln"]
         return rms_norm(h, ln, self.cfg.norm_eps)
 
+    def _cross_q(self, cp, h):
+        """Cross-attention's queries (the rank's heads)."""
+        x = self._attn_in(cp, h)
+        return (x @ cp["wq"]).reshape(*h.shape[:2], -1, self.cfg.resolved_head_dim)
+
+    def _cross_kv(self, cp, enc_out):
+        """Cross-attention's keys and values over the (replicated) encoder
+        output, the rank's KV heads."""
+        hd = self.cfg.resolved_head_dim
+        if self._attn_split(cp):
+            enc_out = enter_model(enc_out)
+        wk, wv = self._kv_weights(cp)
+        B, Se, _ = enc_out.shape
+        return (enc_out @ wk).reshape(B, Se, -1, hd), (enc_out @ wv).reshape(B, Se, -1, hd)
+
     def _cross_sublayer(self, cp, h, enc_out):
-        cfg = self.cfg
-        hd = cfg.resolved_head_dim
-        B, S, _ = h.shape
-        Se = enc_out.shape[1]
-        x = rms_norm(h, cp["ln"], cfg.norm_eps)
-        q = (x @ cp["wq"]).reshape(B, S, cfg.num_heads, hd)
-        k = (enc_out @ cp["wk"]).reshape(B, Se, cfg.num_kv_heads, hd)
-        v = (enc_out @ cp["wv"]).reshape(B, Se, cfg.num_kv_heads, hd)
-        o = attention(q, k, v, causal=False, impl="dense")
-        return o.reshape(B, S, cfg.q_dim) @ cp["wo"]
+        k, v = self._cross_kv(cp, enc_out)
+        o = attention(self._cross_q(cp, h), k, v, causal=False, impl="dense")
+        return self._attn_proj(o, cp)
 
     # ==================================================================
     # One layer: train-forward / prefill / decode
@@ -343,7 +448,7 @@ class Model:
         if cfg.uses_attention:
             q, k, v = self._qkv(bp["attn"], h, positions)
             o = self._self_attention(q, k, v, is_global=is_global)
-            parts.append(o.reshape(B, S, cfg.q_dim) @ bp["attn"]["wo"])
+            parts.append(self._attn_proj(o, bp["attn"]))
             lc["k"], lc["v"] = k, v
         if cfg.uses_ssm:
             x = self._ssm_prenorm(bp, h)
@@ -353,12 +458,7 @@ class Model:
             lc["conv"] = conv_tail
         h = h + sum(parts)
         if "cross" in bp:
-            hd = cfg.resolved_head_dim
-            Se = self._enc_out.shape[1]
-            lc["cross_k"] = (self._enc_out @ bp["cross"]["wk"]).reshape(
-                B, Se, cfg.num_kv_heads, hd)
-            lc["cross_v"] = (self._enc_out @ bp["cross"]["wv"]).reshape(
-                B, Se, cfg.num_kv_heads, hd)
+            lc["cross_k"], lc["cross_v"] = self._cross_kv(bp["cross"], self._enc_out)
             h = h + self._cross_sublayer(bp["cross"], h, self._enc_out)
         if cfg.uses_moe or cfg.d_ff:
             h = h + self._mlp_sublayer(bp, h)
@@ -423,7 +523,7 @@ class Model:
             v_cache[:, blk, off] = v_new[:, 0]
             o = self._striped_attention(q, k_cache, v_cache, pos, window=window,
                                         is_global=is_global)
-            parts.append(o.reshape(*h.shape[:2], cfg.q_dim) @ bp["attn"]["wo"])
+            parts.append(self._attn_proj(o, bp["attn"]))
             nc["k"], nc["v"] = k_cache, v_cache
         elif cfg.uses_attention:
             q, k_new, v_new = self._qkv(bp["attn"], h, positions)
@@ -451,7 +551,7 @@ class Model:
                 softcap=cfg.attn_logit_softcap,
                 impl="dense",
             )
-            parts.append(o.reshape(*h.shape[:2], cfg.q_dim) @ bp["attn"]["wo"])
+            parts.append(self._attn_proj(o, bp["attn"]))
             nc["k"], nc["v"] = k_cache, v_cache
         if cfg.uses_ssm:
             x = self._ssm_prenorm(bp, h)
@@ -467,13 +567,9 @@ class Model:
         return h, nc
 
     def _cross_decode(self, cp, h, lc):
-        cfg = self.cfg
-        hd = cfg.resolved_head_dim
-        B, S, _ = h.shape
-        x = rms_norm(h, cp["ln"], cfg.norm_eps)
-        q = (x @ cp["wq"]).reshape(B, S, cfg.num_heads, hd)
-        o = attention(q, lc["cross_k"], lc["cross_v"], causal=False, impl="dense")
-        return o.reshape(B, S, cfg.q_dim) @ cp["wo"]
+        o = attention(self._cross_q(cp, h), lc["cross_k"], lc["cross_v"], causal=False,
+                      impl="dense")
+        return self._attn_proj(o, cp)
 
     # ==================================================================
     # Layer-stack traversal: a Python loop over periods of layers, each
@@ -509,10 +605,17 @@ class Model:
     # ==================================================================
     # Embedding / head / encoder
     # ==================================================================
+    def _lookup(self, table, tokens):
+        """Embedding rows: a masked lookup of the rank's rows, summed over
+        the model group, where the specs split the vocabulary."""
+        if self._split(table.shape[0], self.cfg.vocab_size):
+            return vocab_parallel_embed(table, tokens, model_rank() * table.shape[0])
+        return table[tokens.long()]
+
     def _embed(self, params, batch):
         cfg = self.cfg
         tokens = batch["tokens"]
-        h = params["embed"][tokens.long()]
+        h = self._lookup(params["embed"], tokens)
         if cfg.frontend == "patch_stub" and "patch_embeds" in batch:
             n = cfg.num_frontend_tokens
             pe = batch["patch_embeds"].to(h.dtype)
@@ -524,10 +627,23 @@ class Model:
         return constrain(h, "embed")
 
     def _head(self, params, h):
+        """The logits; where the specs split the vocabulary, the rank's
+        columns (column-parallel, a tied head included)."""
         cfg = self.cfg
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        if self._split(w.shape[-1], cfg.vocab_size):
+            h = enter_model(h)
         return h @ w
+
+    def _logits(self, params, h):
+        """The whole logits: the head's columns gathered over the model
+        group where the specs split the vocabulary (serving); as they
+        are where it is whole on every rank (whisper's 51,865 over 2)."""
+        logits = self._head(params, h)
+        if logits.shape[-1] != self.cfg.vocab_size:
+            return gather_model(logits)
+        return logits
 
     def _enc_input(self, src_embeds):
         """The encoder's input: the frame embeddings plus sinusoids."""
@@ -542,21 +658,15 @@ class Model:
                          q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
 
     def _enc_qkv(self, attn_bp, h):
-        """An encoder layer's q, k, v: no qk-norm and no rotary positions."""
-        cfg = self.cfg
-        B, S, _ = h.shape
-        hd = cfg.resolved_head_dim
-        x = rms_norm(h, attn_bp["ln"], cfg.norm_eps)
-        return ((x @ attn_bp["wq"]).reshape(B, S, cfg.num_heads, hd),
-                (x @ attn_bp["wk"]).reshape(B, S, cfg.num_kv_heads, hd),
-                (x @ attn_bp["wv"]).reshape(B, S, cfg.num_kv_heads, hd))
+        """An encoder layer's q, k, v (the rank's heads): no qk-norm and no
+        rotary positions."""
+        return self._project_qkv(attn_bp, self._attn_in(attn_bp, h))
 
     def _enc_block(self, h, bp):
         """One encoder layer: bidirectional self-attention, then the MLP."""
         cfg = self.cfg
-        o = self._enc_attention(*self._enc_qkv(bp["attn"], h))
-        h = h + o.reshape(*h.shape[:2], cfg.q_dim) @ bp["attn"]["wo"]
-        return h + swiglu_apply(bp["mlp"], rms_norm(h, bp["mlp_ln"], cfg.norm_eps))
+        h = h + self._attn_proj(self._enc_attention(*self._enc_qkv(bp["attn"], h)), bp["attn"])
+        return h + self._mlp(bp["mlp"], rms_norm(h, bp["mlp_ln"], cfg.norm_eps))
 
     def _encode(self, params, src_embeds):
         h = self._enc_input(src_embeds)
@@ -569,8 +679,16 @@ class Model:
     # ==================================================================
     # Public API
     # ==================================================================
-    def forward(self, params, batch):
+    def _check_parallel(self) -> None:
+        """Raise where the ``model`` axis spans ranks and this family's
+        forward has no tensor-parallel layers yet."""
+        if model_group() is not None:
+            check_tensor_parallel(self.cfg)
+
+    def _hidden(self, params, batch):
+        """The last layer's output of a teacher-forced pass."""
         cfg = self.cfg
+        self._check_parallel()
         self._enc_out = (
             self._encode(params, batch["src_embeds"]) if cfg.is_encoder_decoder else None
         )
@@ -584,13 +702,18 @@ class Model:
                                    positions=positions, enc_out=enc_out), None
 
         h, _ = self._traverse(params["blocks"], h, layer_fn)
-        logits = self._head(params, h)
         self._enc_out = None
-        return logits
+        return h
+
+    def forward(self, params, batch):
+        return self._logits(params, self._hidden(params, batch))
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
+        """The token-mean cross-entropy; where the specs split the
+        vocabulary, over the rank's logit columns
+        (``vocab_parallel_cross_entropy``), never gathered."""
         cfg = self.cfg
-        logits = self.forward(params, batch)
+        logits = self._head(params, self._hidden(params, batch))
         tokens = batch["tokens"]
         targets = batch.get("targets")
         if targets is None:
@@ -599,7 +722,11 @@ class Model:
         mask[:, -1] = 0.0
         if cfg.frontend == "patch_stub":
             mask[:, :cfg.num_frontend_tokens] = 0.0
-        ce = softmax_cross_entropy(logits, targets)
+        if logits.shape[-1] != cfg.vocab_size:
+            ce = vocab_parallel_cross_entropy(logits, targets,
+                                              model_rank() * logits.shape[-1])
+        else:
+            ce = softmax_cross_entropy(logits, targets)
         loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         metrics = {"ce": loss}
         if cfg.uses_moe and cfg.num_layers > 0:
@@ -630,10 +757,24 @@ class Model:
             and cache_len // w >= 2
         )
 
-    def init_cache(self, batch: int, cache_len: int, *, device="cuda") -> dict:
+    def _cache_heads(self, mesh) -> int:
+        """The KV heads a rank's cache holds: its own where the ``model``
+        axis of ``mesh`` spans ranks and the specs split the heads (the
+        Megatron layout), else all of them."""
+        cfg = self.cfg
+        m = 1 if mesh is None or mesh.model_group is None else mesh.n_model
+        if m == 1 or cfg.num_heads % m:
+            return cfg.num_kv_heads
+        return max(cfg.num_heads // m // (cfg.num_heads // cfg.num_kv_heads), 1)
+
+    def init_cache(self, batch: int, cache_len: int, *, device="cuda", mesh=None) -> dict:
+        """A zeroed decode cache.  ``mesh`` (default ``current_mesh()``):
+        over ranks with the ``model`` axis across them, each rank's cache
+        holds its own KV heads."""
         cfg, dt = self.cfg, self.dtype
         dev = resolve_device(device)
         L = cfg.num_layers
+        kvh = self._cache_heads(current_mesh() if mesh is None else mesh)
 
         def zeros(shape, dtype=dt):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -641,10 +782,10 @@ class Model:
         cache: Dict[str, Any] = {}
         if cfg.uses_attention and self._striped(cache_len):
             w = cfg.sliding_window
-            kv = (L, batch, cache_len // w, w, cfg.num_kv_heads, cfg.resolved_head_dim)
+            kv = (L, batch, cache_len // w, w, kvh, cfg.resolved_head_dim)
             cache["k"], cache["v"] = zeros(kv), zeros(kv)
         elif cfg.uses_attention:
-            kv = (L, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+            kv = (L, batch, cache_len, kvh, cfg.resolved_head_dim)
             cache["k"], cache["v"] = zeros(kv), zeros(kv)
         if cfg.uses_ssm:
             conv_ch = cfg.d_inner + 2 * cfg.ssm_state
@@ -652,14 +793,14 @@ class Model:
             cache["h"] = zeros(
                 (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), torch.float32)
         if cfg.is_encoder_decoder:
-            xs = (L, batch, cfg.max_source_positions, cfg.num_kv_heads,
-                  cfg.resolved_head_dim)
+            xs = (L, batch, cfg.max_source_positions, kvh, cfg.resolved_head_dim)
             cache["cross_k"], cache["cross_v"] = zeros(xs), zeros(xs)
         return cache
 
     def prefill(self, params, batch):
         """Run the full prompt; return (last-position logits, filled cache)."""
         cfg = self.cfg
+        self._check_parallel()
         self._enc_out = (
             self._encode(params, batch["src_embeds"]) if cfg.is_encoder_decoder else None
         )
@@ -672,7 +813,7 @@ class Model:
                                        positions=positions)
 
         h, cache = self._traverse(params["blocks"], h, layer_fn)
-        logits = self._head(params, h[:, -1:, :])
+        logits = self._logits(params, h[:, -1:, :])
         self._enc_out = None
         return logits, cache
 
@@ -680,8 +821,9 @@ class Model:
         """token (B, 1) int; pos the write index (an int).  Returns
         (logits (B,1,V), updated cache)."""
         cfg = self.cfg
+        self._check_parallel()
         pos = int(pos)
-        h = params["embed"][token.long()]
+        h = self._lookup(params["embed"], token)
         if cfg.rope_theta <= 0:
             h = h + _sinusoid_at(pos, cfg.d_model, h.device)[None, None].to(h.dtype)
 
@@ -689,8 +831,22 @@ class Model:
             return self._block_decode(bp, lc, c, pos, is_global=cfg.layer_is_global(j))
 
         h, new_cache = self._traverse(params["blocks"], h, layer_fn, extra_xs=cache)
-        logits = self._head(params, h)
+        logits = self._logits(params, h)
         return logits, new_cache
+
+
+def check_tensor_parallel(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family whose layers have no
+    tensor-parallel forward yet (MoE, SSM, hybrid): the specs would split
+    its leaves over a ``model`` axis across ranks while its forward
+    computes on whole ones."""
+    if cfg.uses_moe or cfg.uses_ssm:
+        kind = "MoE" if cfg.uses_moe else ("hybrid" if cfg.uses_attention else "SSM")
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis across ranks for the {kind} family is not implemented "
+            "(the expert-parallel exchange and the SSM/hybrid layers under tensor "
+            "parallelism are the next slice); the dense, vision and encoder-decoder "
+            "families run it")
 
 
 def build_model(cfg: ModelConfig, rt: Runtime = Runtime()) -> Model:

@@ -139,7 +139,15 @@ class AdamW:
         ``q``/``scale`` is not the leaf's, or splits a block) are updated
         whole on every rank from their gathered codes and keep their own
         share.  Without shardings, or on a mesh of one process, everything
-        is whole."""
+        is whole.
+
+        Where the ``model`` axis spans ranks, the parameters, gradients,
+        moments and master copies are each rank's share along ``model``
+        too: the update and its all-gathers run over the data group on the
+        model-local leaves, and the clip norm sums each leaf's squares over
+        the model group where the specs split it and counts it once where
+        they do not.  Int8 moments of a leaf split over ``model`` (whose
+        codes the specs keep whole along it) raise."""
         cfg = self.cfg
         mesh = None if grad_shardings is None else leaves(grad_shardings)[0].mesh
         if mesh is not None and mesh.group is None:
@@ -147,9 +155,13 @@ class AdamW:
         count = state["count"] + 1
         sums = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves(grads)]
         if mesh is not None and sums:
-            own = [s.dim is not None or mesh.lead for s in leaves(grad_shardings)]
-            sums = list(mesh.sum(torch.stack(
-                [x if o else torch.zeros_like(x) for x, o in zip(sums, own)])).unbind())
+            # a rank counts the squares it holds alone: a leaf's share over
+            # each axis that splits it, the first rank's along one that does not
+            own = [(s.dim is not None or mesh.data_index == 0)
+                   and (s.mdim is not None or not mesh.model_index)
+                   for s in leaves(grad_shardings)]
+            sums = list(mesh.model_sum(mesh.sum(torch.stack(
+                [x if o else torch.zeros_like(x) for x, o in zip(sums, own)]))).unbind())
         sq = torch.zeros((), dtype=torch.float32, device=count.device)
         for x in sums:
             sq = sq + x
@@ -183,6 +195,14 @@ class AdamW:
             out = tree_map(upd, params, grads, state["m"], state["v"], masters)
         else:
             def upd_share(s, p, g, m_enc, v_enc, master, ms, vs):
+                if isinstance(ms, dict) and s.mdim is not None:
+                    raise NotImplementedError(
+                        "int8 moments of a leaf split over a model axis across ranks")
+                # the leaves are model-local: only their data split is left
+                s = s.data_part
+                if isinstance(ms, dict):
+                    ms = tree_map(lambda sh: sh.data_part, ms)
+                    vs = tree_map(lambda sh: sh.data_part, vs)
                 if _splits_alike(s, ms, p.shape):
                     new_p, m, v, nm = upd(s.place(p), g, m_enc, v_enc,
                                           master if use_master else None)

@@ -11,13 +11,17 @@ Where the mesh lies on one card (``distributed/meshes.py``), each step
 runs the global batch there as one tensor: the unsharded result that the
 reference's SPMD step computes over its mesh.  Where its rows lie on
 several cards, or the caller names a ``backend``, ``run()`` starts one
-process per row (``distributed/procs.py``) and trains data-parallel:
-each rank takes its share of the batch, gradients are reduced to the
-reference's ZeRO layout, the optimizer state is split over the ranks and
-checkpoints are gathered whole.  On ``DeviceFailure`` (raised on every
-rank at the same step) the ranks wait for the last checkpoint to land;
-the lost ranks leave, and the survivors form a new group and restore
-under its shardings.  ``run()`` returns the first surviving rank's
+process per unit (``distributed/procs.py``) and trains data-parallel
+over the ``data`` axis: each rank takes its share of the batch,
+gradients are reduced to the reference's ZeRO layout, the optimizer
+state is split over the ranks and checkpoints are gathered whole.  With
+``model_par`` above 1 the ``model`` axis spans ranks too: tensor
+parallelism in the Megatron layout of the reference's specs, each rank
+holding its share of every leaf along both axes (``train/step.py``).
+On ``DeviceFailure`` (raised on every rank at the same step) the ranks
+wait for the last checkpoint to land; the lost ranks leave, and the
+survivors form new groups (the model and data groups too) and restore
+under their shardings.  ``run()`` returns the first surviving rank's
 result, its state gathered to the host.
 """
 from __future__ import annotations
@@ -43,6 +47,7 @@ from repro_torch.distributed.ctx import sharding_rules
 from repro_torch.distributed.fault import DeviceFailure, FailureInjector, StragglerMonitor
 from repro_torch.distributed.meshes import NamedSharding, P, make_mesh, units
 from repro_torch.models import Model
+from repro_torch.models.model import check_tensor_parallel
 from repro_torch.optim import AdamW
 from repro_torch.train.step import init_state, make_train_step
 from repro_torch.tree import eval_shape, tree_map
@@ -70,11 +75,13 @@ class TrainerConfig:
 class Trainer:
     """``devices``: units (``distributed.meshes.units``); by default every
     unit of ``device`` (``"cuda"``, one unit per card; ``"cpu"`` for the
-    plain versions on the CPU).  ``backend``: asks for one rank per data
-    row over that backend even where the rows lie on one card or the CPU
-    (ranks that share a card need gloo); rows on several cards run as
+    plain versions on the CPU).  ``backend``: asks for one rank per unit
+    over that backend even where the units lie on one card or the CPU
+    (ranks that share a card need gloo); units on several cards run as
     ranks without it, over the backend their placement gives
-    (``distributed.procs.backend_for``)."""
+    (``distributed.procs.backend_for``).  ``model_par``: the ``model``
+    axis; over ranks, tensor parallelism (the MoE, SSM and hybrid
+    families raise)."""
 
     def __init__(
         self,
@@ -118,6 +125,8 @@ class Trainer:
         mp = self.model_par if n % self.model_par == 0 else 1
         self.mesh = make_mesh((n // mp, mp), ("data", "model"), devices=devices)
         self.active_devices = devices
+        if mp > 1 and (self.mesh.model_group is not None or self._spawns()):
+            check_tensor_parallel(self.cfg)
 
         state_shape = self._state_shape()
         pspecs = shd.param_specs(self.cfg, self.mesh, state_shape["params"])
@@ -151,7 +160,7 @@ class Trainer:
         return state, 0
 
     def _place_batch(self, batch: Dict[str, np.ndarray]):
-        n = len(self.mesh.ranks) if self.mesh.group is not None else 1
+        n = self.mesh.n_data if self.mesh.group is not None else 1
         a, rows = self.tcfg.grad_accum, self.dataset.batch
         if n > 1 and a > 1 and rows % n == 0:
             if rows % (a * n):
@@ -173,7 +182,7 @@ class Trainer:
         surviving rank's result, its ``state`` gathered whole on the CPU;
         inside a rank, the ranks that do not lead (or have left) return
         None."""
-        if self.mesh.ranks is None and (self.mesh.spans_cards or self.backend is not None):
+        if self._spawns():
             return self._run_ranks()
         if self.mesh.ranks is not None and self.mesh.group is None:
             return None  # a rank that holds no row of the mesh
@@ -209,7 +218,8 @@ class Trainer:
                     # every rank, the lost ones too: the lead's last
                     # checkpoint has landed before anyone restores
                     self.mesh.barrier()
-                    if not set(self.mesh.rows[self.mesh.index]) & set(survivors):
+                    world = procs.current()
+                    if world.units[world.rank] not in survivors:
                         return None  # this rank was lost: it leaves the job
                 self._build(survivors)
                 state, step = self._init_or_restore()
@@ -228,20 +238,26 @@ class Trainer:
             "ckpt_write_s": self.ckpt.last_save_s,
         }
 
+    def _spawns(self) -> bool:
+        """Whether ``run()`` starts the job's ranks: its mesh, outside
+        them, lies on several cards or the caller named a backend."""
+        return self.mesh.ranks is None and (self.mesh.spans_cards or self.backend is not None)
+
     def _ranked_shardings(self):
         return self.state_shardings if self.mesh.group is not None else None
 
     def _run_ranks(self) -> Dict[str, Any]:
-        """``run()`` in one process per row of the mesh; this Trainer takes
-        over the first surviving rank's history, recoveries, monitors and
-        units."""
+        """``run()`` in one process per unit of the mesh, in the order of
+        its rows; this Trainer takes over the first surviving rank's
+        history, recoveries, monitors and units."""
         kw = dict(cfg=self.cfg, model=self.model, optimizer=self.optimizer,
                   schedule=self.schedule, dataset=self.dataset, tcfg=self.tcfg,
                   devices=self.active_devices, model_par=self.model_par,
                   failure_injector=self.failure_injector)
         carry = (self.metrics_history, self.recoveries,
                  dataclasses.replace(self.straggler, on_straggle=None))
-        results = procs.spawn(_run_rank, (kw, carry), rows=self.mesh.rows,
+        results = procs.spawn(_run_rank, (kw, carry),
+                              units=[u for row in self.mesh.rows for u in row],
                               jobdir=self.tcfg.ckpt_dir, backend=self.backend,
                               timeout=self.tcfg.timeout_s)
         out, devices, straggler, self.failure_injector = next(r for r in results if r is not None)

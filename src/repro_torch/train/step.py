@@ -7,17 +7,20 @@ returns a new state and leaves the one it was given as it was.
 Gradients are ``torch.autograd.grad`` over the parameter leaves, in the
 leaves' types (bf16 leaves give bf16 grads, as ``jax.value_and_grad``
 does).  On a mesh over ranks the step is data-parallel
-(``make_train_step``).  ``decode_step``/``prefill`` wrap the model's
-serving entry points.
+(``make_train_step``), and tensor-parallel too where the mesh's ``model``
+axis spans ranks.  ``decode_step``/``prefill`` wrap the model's serving
+entry points, over such a mesh when given one.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import contextlib
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.ctx import mesh_context
 from repro_torch.distributed.meshes import NamedSharding, P
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, check_tensor_parallel
 from repro_torch.optim import AdamW, compress_grads, init_residuals
 from repro_torch.tree import leaves, leaves_with_paths, set_by_path, tree_map
 
@@ -37,6 +40,23 @@ def init_state(model: Model, optimizer: AdamW, rng=0, *, compress: bool = False,
     if compress:
         state["residuals"] = init_residuals(params)
     return state
+
+
+def placed_params(model: Model, rng, shardings, *, device=None) -> dict:
+    """``model.init(rng)``'s parameters as this process holds them under
+    ``shardings`` (a ``NamedSharding`` tree like the parameters): each leaf
+    placed as it is drawn, so a rank holds its share and never the whole
+    model (a layer's leaf is placed under its stacked leaf's spec without
+    the leading ``L`` entry)."""
+    shard_of = dict(leaves_with_paths(shardings))
+
+    def place(path, t):
+        s = shard_of[path]
+        if path.split("/")[0] in ("blocks", "enc_blocks"):
+            s = NamedSharding(s.mesh, P(*s.spec[1:]))
+        return s.place(t)
+
+    return model.init(rng, device=device, place=place)
 
 
 def value_and_grad(model: Model, params: dict, batch: dict):
@@ -83,9 +103,26 @@ def make_train_step(
     all-reduced, compressed whole and then split, as the reference
     compresses its reduced gradients.  ``opt_shardings`` (the optimizer
     state's tree) goes to ``AdamW.update``.  On a mesh of one process the
-    layout is the gradients as they are, and nothing changes."""
+    layout is the gradients as they are, and nothing changes.
+
+    Where the mesh's ``model`` axis spans ranks (tensor parallelism) each
+    rank holds its share of every leaf the specs split over ``model``, the
+    forward enters and leaves its model-parallel regions through
+    ``distributed/ctx.py`` under ``mesh_context(mesh)``, and each gradient
+    comes out model-local and complete: the gradients of the leaves the
+    specs replicate but a region uses (``wk``/``wv`` with fewer KV heads
+    than the axis, ``q_norm``/``k_norm``) are summed over the model group
+    by the region's entry in the backward pass.  The reduction above then
+    runs over the data group, and the loss and metrics are averaged over
+    it.  Gradient compression and int8 moments have no tensor-parallel
+    layout yet and raise."""
     mesh = None if grad_shardings is None else leaves(grad_shardings)[0].mesh
     ranked = mesh is not None and mesh.group is not None
+    tp = mesh if ranked and mesh.model_group is not None else None
+    if tp is not None:
+        check_tensor_parallel(model.cfg)
+        if compress:
+            raise NotImplementedError("gradient compression with the model axis across ranks")
     whole = (tree_map(lambda s: NamedSharding(s.mesh, P()), grad_shardings)
              if ranked and compress else grad_shardings)
 
@@ -93,6 +130,10 @@ def make_train_step(
         return tree_map(lambda s, g: s.reduce(g), whole, grads) if ranked else grads
 
     def train_step(state: dict, batch: dict) -> Tuple[dict, Dict[str, torch.Tensor]]:
+        with _within(tp):
+            return step(state, batch)
+
+    def step(state: dict, batch: dict) -> Tuple[dict, Dict[str, torch.Tensor]]:
         if grad_accum > 1:
             # Microbatches over the leading batch dim, in order, each
             # one's grads in float32 (reduced over the ranks) added to the
@@ -124,7 +165,7 @@ def make_train_step(
         if compress:
             grads, new_state["residuals"] = compress_grads(grads, state["residuals"])
             if ranked:
-                grads = tree_map(lambda s, g: s.place(g), grad_shardings, grads)
+                grads = tree_map(lambda s, g: s.data_part.place(g), grad_shardings, grads)
         lr = schedule(state["step"])
         if ranked:
             new_params, new_opt, om = optimizer.update(
@@ -141,15 +182,41 @@ def make_train_step(
     return train_step
 
 
-def make_decode_step(model: Model) -> Callable:
+def _checked(model: Model, mesh):
+    """``mesh``, once the model's family is known to run on it."""
+    if mesh is not None and mesh.model_group is not None:
+        check_tensor_parallel(model.cfg)
+    return mesh
+
+
+def _within(mesh):
+    """``mesh_context(mesh)``; nothing for None (an outer context stays)."""
+    return contextlib.nullcontext() if mesh is None else mesh_context(mesh)
+
+
+def make_decode_step(model: Model, mesh: Optional[object] = None) -> Callable:
+    """One decode step.  ``mesh``: a mesh over ranks whose ``model`` axis
+    spans them (tensor-parallel serving): the parameters are each rank's
+    shares (``NamedSharding.place`` of ``param_specs``, or
+    ``placed_params``), the cache holds the rank's KV heads
+    (``Model.init_cache`` under the mesh, or the prefill's) and the logits
+    come back whole on every rank."""
+    mesh = _checked(model, mesh)
+
     def serve_step(params, cache, token, pos):
-        return model.decode_step(params, cache, token, pos)
+        with _within(mesh):
+            return model.decode_step(params, cache, token, pos)
 
     return serve_step
 
 
-def make_prefill(model: Model) -> Callable:
+def make_prefill(model: Model, mesh: Optional[object] = None) -> Callable:
+    """The prefill; ``mesh`` as in :func:`make_decode_step` (the cache it
+    returns holds the rank's KV heads)."""
+    mesh = _checked(model, mesh)
+
     def prefill(params, batch):
-        return model.prefill(params, batch)
+        with _within(mesh):
+            return model.prefill(params, batch)
 
     return prefill

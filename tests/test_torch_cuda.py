@@ -486,3 +486,33 @@ def test_dryrun_on_the_card_allocates_nothing(device):
     assert torch.cuda.memory_allocated() == before
     assert torch.cuda.max_memory_allocated() == before
     assert 0.95 <= rec["cost_totals"]["flops"] / rec["model_flops_total"] <= 1.10
+
+
+def test_tensor_parallel_prefill_on_the_card_matches_one_process(device, tmp_path):
+    """Reduced granite-8b's prefill over 2 gloo ranks of the card, the
+    model axis across them, on the kernel route (each rank launching
+    ``flash_attention`` on its own 2 heads, once a layer), against the
+    one-process kernel route on the same weights."""
+    import torch_tp_ranks as TP
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import procs
+    from repro_torch.distributed.meshes import LogicalDevice
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.train import make_prefill
+
+    cfg = reduced(get_config("granite-8b")).replace(dtype="float32")
+    model = build_model(cfg, Runtime(attn_impl="pallas", remat="none"))
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    before = FA.STATS["flash_attention"]
+    with torch.inference_mode():
+        want, _ = make_prefill(model)(params, {k: v.to(device)
+                                               for k, v in TP.serve_batch(cfg).items()})
+    assert FA.STATS["flash_attention"] == before + cfg.num_layers
+    got = procs.spawn(TP.card_prefill, ("granite-8b",),
+                      units=[LogicalDevice(i, device) for i in range(2)],
+                      jobdir=str(tmp_path), backend="gloo", timeout=300)
+    for logits, launches in got:
+        assert launches == cfg.num_layers
+        err = float((logits - want.cpu()).abs().max() / want.abs().max())
+        assert err < 1e-4, err

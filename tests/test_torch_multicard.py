@@ -3,7 +3,8 @@ on the CPU over gloo, with 2 and 4 spawned ranks.
 
 * The reference's sub-mesh check from ``tests/test_multidevice.py`` at
   model_par 1: two disjoint carved blocks of 2 ranks, sums 384.0 and
-  768.0; a model axis across ranks raises.
+  768.0; and over all 4 ranks at model_par 2, each rank holding a 4 x 8
+  share of the ones, sum 384.0 over both groups.
 * One train step of reduced granite-8b (vocab 512, float32, B 8 x S 32)
   on 4 ranks and on each of two 2-rank blocks, against the one-process
   port step from the same state (the reference's initial parameters
@@ -143,7 +144,7 @@ def four_ranks(tmp):
     TR.make_trainer(cross, units("cpu", count=1), steps=WARM + 1, ckpt_every=WARM + 1).run()
     full = TR.make_trainer(tmp / "full", units("cpu", count=1), steps=WARM + 5).run()
     got = procs.spawn(TR.four_ranks, (cases, WARM, cross, WARM + 3),
-                      rows=[(u,) for u in units("cpu", count=4)], jobdir=str(tmp),
+                      units=units("cpu", count=4), jobdir=str(tmp),
                       timeout=SPAWN_S)
     return {"want": want, "got": got, "cross": cross, "full": full, "int8_v_zero": v_zero}
 
@@ -213,7 +214,7 @@ def skipped_reduction(tmp):
     t0 = time.perf_counter()
     try:
         procs.spawn(TR.skip_reduction_on, (1, state_np, 0, tmp / "f"),
-                    rows=[(u,) for u in units("cpu", count=2)], jobdir=str(tmp), timeout=60)
+                    units=units("cpu", count=2), jobdir=str(tmp), timeout=60)
     except RuntimeError as e:
         return e, time.perf_counter() - t0
     return None, time.perf_counter() - t0
@@ -263,7 +264,7 @@ def check_step(want, got):
 def test_submesh_blocks_are_disjoint_ranks(jobs):
     got = result(jobs, "four")["got"]
     assert {r["submesh"] for r in got} == {(0, (4, 16), 384.0), (1, (4, 16), 768.0)}
-    assert all("model axis across ranks" in r["model_across_ranks"] for r in got)
+    assert all(r["model_across_ranks"] == ((4, 8), 384.0) for r in got)
 
 
 @pytest.mark.parametrize("case,world", [("granite-8b", 2), ("granite-8b", 4),
@@ -384,16 +385,17 @@ def test_a_rank_skipping_the_gradient_reduction_fails_the_job(jobs):
 
 
 def test_mesh_over_cards():
-    """A data axis across cards describes a job's ranks (no device, no
-    group outside them); a model axis across cards raises and says so."""
+    """A mesh across cards describes a job's ranks (no device, no group
+    outside them), its data axis alone or its model axis too."""
     from repro_torch.distributed.meshes import LogicalDevice, make_mesh
 
     cards = [LogicalDevice(i, torch.device("cuda", i)) for i in range(4)]
     m = make_mesh((4, 1), ("data", "model"), devices=cards)
     assert m.spans_cards and m.device is None and m.group is None and m.ranks is None
     assert m.rows == [(u,) for u in cards]
-    with pytest.raises(NotImplementedError, match="model axis across cards"):
-        make_mesh((2, 2), ("data", "model"), devices=cards)
+    m = make_mesh((2, 2), ("data", "model"), devices=cards)
+    assert m.spans_cards and m.device is None and m.group is None and m.ranks is None
+    assert m.rows == [tuple(cards[:2]), tuple(cards[2:])]
     two_a_card = [LogicalDevice(i, torch.device("cuda", i // 2)) for i in range(4)]
     m = make_mesh((2, 2), ("data", "model"), devices=two_a_card)
     assert m.rows == [tuple(two_a_card[:2]), tuple(two_a_card[2:])] and m.spans_cards
@@ -402,8 +404,8 @@ def test_mesh_over_cards():
 def test_default_trainer_on_a_node_of_cards(tmp_path, monkeypatch):
     """The repaired fault: on a node of 4 cards (no REPRO_HOST_DEVICES) the
     launchers' default Trainer raised building its mesh.  Now it is a mesh
-    over 4 cards whose run starts one NCCL rank a card; a model axis
-    across cards still raises, and says so."""
+    over 4 cards whose run starts one NCCL rank a card, at model_par 2
+    too (tensor parallelism, a rank a card)."""
     monkeypatch.delenv("REPRO_HOST_DEVICES", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
@@ -411,8 +413,10 @@ def test_default_trainer_on_a_node_of_cards(tmp_path, monkeypatch):
     assert tr.mesh.shape == {"data": 4, "model": 1} and tr.mesh.spans_cards
     assert [row[0].device for row in tr.mesh.rows] == [torch.device("cuda", i) for i in range(4)]
     assert procs.backend_for([row[0].device for row in tr.mesh.rows]) == "nccl"
-    with pytest.raises(NotImplementedError, match="model axis across cards"):
-        Trainer(tr.cfg, tr.model, tr.optimizer, tr.schedule, tr.dataset, tr.tcfg, model_par=2)
+    tp = Trainer(tr.cfg, tr.model, tr.optimizer, tr.schedule, tr.dataset, tr.tcfg, model_par=2)
+    assert tp.mesh.shape == {"data": 2, "model": 2} and tp._spawns()
+    assert [u.device for row in tp.mesh.rows for u in row] == \
+        [torch.device("cuda", i) for i in range(4)]
 
 
 def test_backend_follows_placement():

@@ -165,10 +165,17 @@ def test_logical_units_and_carving(monkeypatch):
 
 
 def test_mesh_over_two_cards_is_refused():
+    """A (1, 2) mesh over two cards describes a tensor-parallel job of two
+    ranks, a card each (its ``model`` axis across them).  Outside those
+    ranks it holds no device and no group, and placing a leaf on it is
+    refused."""
     units = [PMe.LogicalDevice(0, torch.device("cuda", 0)),
              PMe.LogicalDevice(1, torch.device("cuda", 1))]
-    with pytest.raises(NotImplementedError):
-        PMe.make_mesh((1, 2), ("data", "model"), devices=units)
+    m = PMe.make_mesh((1, 2), ("data", "model"), devices=units)
+    assert m.spans_cards and m.rows == [tuple(units)]
+    assert m.device is None and m.group is None and m.model_group is None
+    with pytest.raises(RuntimeError, match="holds no unit"):
+        PMe.NamedSharding(m, P(None, "model")).place(torch.ones(2, 4))
 
 
 def test_current_rules_matches_reference():

@@ -61,7 +61,8 @@ def one_step(tr, state_np, step):
 def four_ranks(cases, step, cross_dir, cross_to):
     """Run in each of 4 ranks: the reference's sub-mesh check at model_par
     1 (two disjoint blocks of 2 ranks, 8 x 16 ones and twos, sum x 3
-    over each block); one step of each of ``cases`` ({name: (keywords of
+    over each block) and at model_par 2 over all 4 (a (2, 2) mesh, the
+    ones split over both axes); one step of each of ``cases`` ({name: (keywords of
     ``make_trainer``, the whole state)}) on all 4 ranks, and of
     ``"granite-8b"`` on each 2-rank block too; then a Trainer over the 4
     ranks that resumes the one-process checkpoint in ``cross_dir`` and
@@ -75,10 +76,9 @@ def four_ranks(cases, step, cross_dir, cross_to):
             continue
         x = NamedSharding(m, P("data", None)).place(torch.ones((8, 16)) * (i + 1))
         out["submesh"] = (i, tuple(x.shape), float(m.sum((x * 3).sum())))
-    try:
-        carve_submesh(us, 0, 4, model_axis=2)
-    except NotImplementedError as e:
-        out["model_across_ranks"] = str(e)
+    m = carve_submesh(us, 0, 4, model_axis=2)  # the model axis across ranks
+    x = NamedSharding(m, P("data", "model")).place(torch.ones((8, 16)))
+    out["model_across_ranks"] = (tuple(x.shape), float(m.model_sum(m.sum((x * 3).sum()))))
     for name, (kw, state_np) in cases.items():
         out[f"{name}/4"] = one_step(make_trainer(cross_dir.parent / name, us, **kw), state_np, step)
     kw, state_np = cases["granite-8b"]

@@ -1,0 +1,61 @@
+#!/usr/bin/env python3
+"""Phase 17 of ``chip_smoke.py`` alone: tensor-parallel serving over ranks.
+
+    python3 tools/serve_tp_cards.py [--cards N]
+
+Builds the kernels, then serves granite-8b at full width over 2 ranks
+whose ``model`` axis spans them -- 2 gloo ranks of one card, or a card
+each over NCCL -- against the one-process kernel route on card 0, and on
+several cards qwen3-32b over 4 (or 2) cards: at 16 of its 64 layers
+against one process on card 0, and at full depth timed (prefill s, decode
+ms a step, the collectives' µs, each rank's peak memory).  Then
+``flash_attention`` at the per-rank shapes beside SDPA.  It prints each
+card's name and power limit, the phase's lines and, last, a JSON summary;
+any failed check raises.  Without a CUDA device it exits 2.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as CS  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cards", type=int, default=None)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("serve_tp_cards: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out, launches, times = CS.phase_serve_tp(torch.device("cuda", 0), ROOT / "build" / "serve_tp",
+                                             cards=args.cards)
+    print(f"phase_s={time.perf_counter() - t0!r}")
+    print(json.dumps({"metrics": out, "launches": launches, "flash": times}, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
