@@ -86,7 +86,14 @@ several cards, a card each over NCCL, then qwen3-32b over 4), each rank
 holding its share of the reference's Megatron specs and launching
 ``flash_attention`` on its own heads, held to the one-process kernel
 route on the same weights; a rank skipping the attention region's
-all-reduce must fail it.
+all-reduce must fail it.  Tensor-parallel MoE serving (phase 18,
+``serve_tp_moe_cards``): qwen2-moe-a2.7b at full width and depth over 2
+gloo ranks of one card (on several cards over min(cards, 4), a card each
+over NCCL; then arctic-480b at full width over 4 cards at 5 of its 35
+layers), each rank holding its share of the experts, routing every token
+as the other ranks do and summing its partial output with theirs in one
+all-reduce a MoE layer, held to one process; a rank skipping that
+all-reduce, or computing every expert rather than its own, must fail it.
 
 Phases: 1 device and build (and the tensor-core instructions in the SASS
 of the flash kernels and the bf16 ssd kernels, the TMA loads of the bf16
@@ -96,7 +103,8 @@ plain versions, 3 paper node, 4
 elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer,
 10 the scheduler daemon, 11 MoE serving, 12 training, 13 co-scheduling,
 14 roofline, 15 serving the dense, vision and encoder-decoder families,
-16 training over ranks, 17 tensor-parallel serving over ranks.
+16 training over ranks, 17 tensor-parallel serving over ranks, 18
+tensor-parallel MoE serving over ranks.
 ``score_reduce`` carries the idle-node guard in its one launch
 (``guard=``); phases 3-5 print its guarded calls, and phase 6 the
 guarded segments of the packed launches, one per staged burst.
@@ -112,6 +120,7 @@ of JAX and nothing of the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -160,6 +169,13 @@ TP_FLASH = dict(
     granite_8b_mp2=(4, 2048, 16, 4, 128, 0, 0.0, True),
     qwen3_32b_mp4=(4, 2048, 16, 2, 128, 0, 0.0, True),
 )
+# phase 18's: a rank's heads of qwen2-moe-a2.7b at model_par 2 and 4 (16
+# over 16 heads), and of arctic-480b at 4 (56 over 8: 14 over 2, GQA group 7)
+MOE_TP_FLASH = dict(
+    qwen2_moe_a2_7b_mp2=(4, 2048, 8, 8, 128, 0, 0.0, True),
+    qwen2_moe_a2_7b_mp4=(4, 2048, 4, 4, 128, 0, 0.0, True),
+    arctic_480b_mp4=(4, 2048, 14, 2, 128, 0, 0.0, True),
+)
 # the model kernels' cases: the reference's kernel tests
 # (tests/test_kernels_flash.py, tests/test_kernels_ssd.py) plus the
 # serving path's shapes (but granite-8b's, timed in phase 7 only)
@@ -179,7 +195,7 @@ FLASH_CASES = (
     # a window with softcap, and S 4096 (the K/V ring wraps 16 times)
     (1, 2113, 8, 8, 128, 0, 0.0, True), (1, 2113, 16, 4, 128, 0, 0.0, True),
     (1, 1000, 8, 2, 128, 300, 30.0, True), (1, 4096, 8, 2, 128, 0, 0.0, True),
-    MOE_FLASH, *FAMILY_FLASH.values(), *TP_FLASH.values(),
+    MOE_FLASH, *FAMILY_FLASH.values(), *TP_FLASH.values(), *MOE_TP_FLASH.values(),
     # causal, enough tile pairs for a persistent grid, and an odd tile
     # count: the middle tile walks alone
     (4, 1408, 32, 8, 128, 0, 0.0, True),
@@ -269,6 +285,17 @@ WHISPER_Q_CHUNK = 500
 TP_ARCH, TP_M, TP_F32_LAYERS = "granite-8b", 2, 8
 TP_BIG_ARCH, TP_BIG_ONE_LAYERS = "qwen3-32b", 16
 TP_TIMEOUT_S = 900
+# phase 18: qwen2-moe-a2.7b served at full width and depth over 2 ranks
+# of one card (gloo), or min(cards, 4) cards (NCCL; 30 or 15 of its 60
+# experts a rank), phase 8's batch, cache and steps, float32 cut to
+# phase 11's MOE_F32_LAYERS; on 4 cards arctic-480b at full width over 4
+# (32 of its 128 experts a rank): ARCTIC_LAYERS of its 35 layers timed
+# (6.83 GB of weights a layer a rank, and each rank draws a layer's whole
+# expert leaf, 17.9 GB in float32 and 8.9 in bf16, before it keeps its
+# share: 8 layers ran out of a card's 79 GiB), held to one process on
+# card 0 at ARCTIC_ONE_LAYERS (27.3 GB a layer: card 0 alone holds one
+# while it stacks the layers' leaves)
+MOE_TP_M, ARCTIC_ARCH, ARCTIC_LAYERS, ARCTIC_ONE_LAYERS = 2, "arctic-480b", 5, 1
 
 
 def check(cond, msg: str) -> None:
@@ -3589,21 +3616,133 @@ def attn_proj_skipping_leave(self, o, p):
     return out
 
 
+class RouteLog:
+    """Every MoE routing's top-k experts while entered (``models/moe.py``'s
+    ``top_k`` wrapped; nothing when ``on`` is false), as int16 tensors on
+    the CPU in call order: a check beside the main path, as each one
+    read waits for the card, so no timed pass runs under it."""
+
+    def __init__(self, on=True):
+        self.on, self.calls = on, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe as PM
+
+        self._orig = PM.top_k
+        if self.on:
+            def recorded(probs, k):
+                vals, idx = self._orig(probs, k)
+                self.calls.append(idx.to(torch.int16).cpu())
+                return vals, idx
+
+            PM.top_k = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as PM
+
+        PM.top_k = self._orig
+
+
+class RouteReplay:
+    """Each MoE routing's top-k experts taken in turn from ``calls`` (a
+    one-process run's ``RouteLog``), weighed by this rank's own router
+    probabilities at them: the ranks compute the one-process run's
+    routing, as phase 11's float32 comparison gives the kernel route the
+    plain route's, so tokens whose experts flip on the last bits do not
+    move a float32 comparison.  Nothing when ``calls`` is None; every
+    call must be taken."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe as PM
+
+        self._orig, self.taken = PM.top_k, 0
+        if self.calls is not None:
+            def replayed(probs, k):
+                idx = self.calls[self.taken].to(probs.device, torch.long)
+                self.taken += 1
+                return probs.gather(-1, idx), idx
+
+            PM.top_k = replayed
+        return self
+
+    def __exit__(self, exc, *rest):
+        from repro_torch.models import moe as PM
+
+        PM.top_k = self._orig
+        if exc is None and self.calls is not None:
+            check(self.taken == len(self.calls),
+                  f"RouteReplay: {self.taken} routings taken of {len(self.calls)}")
+
+
+def plant_fault(leg):
+    """``leg["fault"]`` put in place on rank ``leg["fault_rank"]`` (nothing
+    without one): ``"attn_leave"`` (the default, phase 17's:
+    ``attn_proj_skipping_leave``), ``"moe_leave"`` (the rank's MoE layers
+    keep their own partial sums: it takes part in the all-reduce, its
+    result dropped) or ``"every_expert"`` (the rank computes its routed
+    part over every expert rather than its own, so the model group's sum
+    counts that part again; every rank gathers the whole expert leaves,
+    so the ranks stay in step).  Returns the undo."""
+    from repro_torch.distributed import procs
+    from repro_torch.distributed.ctx import gather_model
+    from repro_torch.models import moe as PM
+    from repro_torch.models.model import Model
+
+    if "fault_rank" not in leg:
+        return lambda: None
+    me = leg["fault_rank"] == procs.current().rank
+    fault = leg.get("fault", "attn_leave")
+    if fault == "attn_leave":
+        orig = Model._attn_proj
+        if me:
+            Model._attn_proj = attn_proj_skipping_leave
+        return lambda: setattr(Model, "_attn_proj", orig)
+    if fault == "moe_leave":
+        orig = PM.leave_model
+
+        def kept(x):
+            orig(x)
+            return x
+
+        if me:
+            PM.leave_model = kept
+        return lambda: setattr(PM, "leave_model", orig)
+    check(fault == "every_expert", f"unknown planted fault {fault!r}")
+    orig = PM.routed_experts
+
+    def routed(p, x, cfg, capacity_factor=1.25, e_base=0):
+        whole = {k: gather_model(t, 0) for k, t in p["experts"].items()}
+        if not me:
+            return orig(p, x, cfg, capacity_factor, e_base)
+        return orig({"router": p["router"], "experts": whole}, x, cfg, capacity_factor)
+
+    PM.routed_experts = routed
+    return lambda: setattr(PM, "routed_experts", orig)
+
+
 def tp_serve_leg(leg, mesh, tally):
     """One leg of ``tp_serve_rank`` in this rank: ``leg["cfg"]`` with seeded
     weights each rank draws whole a layer at a time and keeps its share of
     (``train.step.placed_params``: the one-process weights), served over
     ``mesh`` through ``make_prefill`` / ``make_decode_step`` on the kernel
     route: a prefill (after a warm-up one with ``leg["warm"]``), then one
-    decode step per token of ``leg["tokens"]`` (the one-process run's).
+    decode step per token of ``leg["tokens"]`` (the one-process run's);
+    ``leg["routes"]`` records the warm-up prefill's MoE routings
+    (``RouteLog``), ``leg["replay"]`` gives the prefill and the decode
+    steps a one-process run's (``RouteReplay``), ``leg["fault"]`` plants
+    a fault (``plant_fault``).
     Returns (metrics, the logits of the prefill and each step on the CPU,
-    None unless ``leg["keep"]``)."""
+    None unless ``leg["keep"]``, the routings)."""
     import torch
-    from repro_torch.distributed import procs
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import Runtime, build_model
-    from repro_torch.models.model import Model
     from repro_torch.train import make_decode_step, make_prefill
     from repro_torch.train.step import placed_params
     from repro_torch.tree import eval_shape, leaves
@@ -3625,15 +3764,15 @@ def tp_serve_leg(leg, mesh, tally):
     B, P = leg["B"], leg["P"]
     batch = serve_batch(cfg, dev, B, P)
     prefill, step = make_prefill(model, mesh), make_decode_step(model, mesh)
-    orig = Model._attn_proj
-    if leg.get("fault_rank") == procs.current().rank:
-        Model._attn_proj = attn_proj_skipping_leave
+    undo = plant_fault(leg)
     logits = []
     try:
         with torch.inference_mode():
             if leg["warm"]:
-                prefill(params, batch)
+                with RouteLog(leg.get("routes", False)) as log:
+                    prefill(params, batch)
                 sync(dev)
+        with torch.inference_mode(), RouteReplay(leg.get("replay")):
             tally.take()
             FA.reset_stats()
             t0 = time.perf_counter()
@@ -3664,7 +3803,7 @@ def tp_serve_leg(leg, mesh, tally):
             check(FA.STATS["flash_attention"] == m["flash_launches_per_prefill"],
                   f"tp {leg['name']}: decode launched flash_attention")
     finally:
-        Model._attn_proj = orig
+        undo()
     if step_s:
         m.update(decode_ms_per_step=statistics.median(step_s) * 1e3,
                  decode_collective_us_per_step=statistics.median(step_us),
@@ -3673,7 +3812,7 @@ def tp_serve_leg(leg, mesh, tally):
     del params, cache, lg
     if cuda:
         torch.cuda.empty_cache()
-    return m, (logits if leg["keep"] else None)
+    return m, (logits if leg["keep"] else None), (log.calls if leg["warm"] else [])
 
 
 def tp_serve_rank(legs):
@@ -3692,7 +3831,9 @@ def tp_serve_rank(legs):
     out = {"rank": world.rank, "device": str(world.device), "backend": world.backend}
     with CollectiveClock(events=world.backend == "nccl") as tally:
         for leg in legs:
-            out[leg["name"]] = tp_serve_leg(leg, mesh, tally)
+            m, logits, routes = tp_serve_leg(leg, mesh, tally)
+            out[leg["name"]] = (m, logits)
+            out[leg["name"] + "/routes"] = routes
     return out
 
 
@@ -3705,11 +3846,13 @@ def tp_cfg(arch, dtype, layers=None):
 
 
 def tp_one_process(device, cfg, routes, B, P, steps, cap):
-    """The one-process run phase 17 holds the ranks to, on ``device``:
-    ``cfg`` with the same seeded weights, prefill and ``steps`` greedy decode steps through each
-    of ``routes`` ({name: attn_impl}; "k", the kernel route, sets the
-    tokens).  Returns (logits by route, the tokens fed, the kernel
-    route's prefill s after a warm-up one)."""
+    """The one-process run phases 17 and 18 hold the ranks to, on
+    ``device``: ``cfg`` with the same seeded weights, prefill and
+    ``steps`` greedy decode steps through each of ``routes`` ({name:
+    attn_impl}; "k", the kernel route, sets the tokens).  Returns (logits
+    by route, and under "routes" the kernel route's prefill routings of a
+    MoE model and each decode step's after them, ``RouteLog``; the tokens
+    fed; the kernel route's prefill s after a warm-up one)."""
     import torch
     from repro_torch.models import Runtime, build_model
     from repro_torch.train import make_decode_step, make_prefill
@@ -3726,17 +3869,23 @@ def tp_one_process(device, cfg, routes, B, P, steps, cap):
         make_prefill(models["k"])(params, batch)
         sync(device)
         prefill_s = time.perf_counter() - t0
+        log = RouteLog(cfg.uses_moe)
         for r, mdl in models.items():
-            lg, c = make_prefill(mdl)(params, batch)
+            with log if r == "k" else contextlib.nullcontext():
+                lg, c = make_prefill(mdl)(params, batch)
             caches[r] = pad_cache(c, cap)
             out[r].append(lg.float().cpu())
         tok = out["k"][0][:, -1].argmax(-1)[:, None]
         for i in range(steps):
             tokens.append(tok)
             for r, mdl in models.items():
-                lg, caches[r] = make_decode_step(mdl)(params, caches[r], tok.to(device), P + i)
+                with log if r == "k" else contextlib.nullcontext():
+                    lg, caches[r] = make_decode_step(mdl)(params, caches[r], tok.to(device),
+                                                          P + i)
                 out[r].append(lg.float().cpu())
             tok = out["k"][-1][:, -1].argmax(-1)[:, None]
+    if log.calls:
+        out["routes"] = log.calls
     del params, caches
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -3885,6 +4034,163 @@ def phase_serve_tp(device, workdir, cards=None):
         for shape, case in TP_FLASH.items():
             times[shape] = t = time_flash(device, "bfloat16", case=case)
             print(f"  flash_attention {shape} at {case} bfloat16: " + " ".join(
+                f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
+    return out, launches, times
+
+
+def moe_routing(name, ranks, one=None):
+    """Leg ``name``'s routings (``RouteLog``, each MoE layer's top-k
+    experts of the warm-up prefill, the ranks' own): whether every rank
+    picked rank 0's experts for every token, and, against the one-process
+    kernel route's prefill (``one["routes"]``), the tokens whose expert
+    set flips, in all and in the layer with the most."""
+    import torch
+
+    got = [r[name + "/routes"] for r in ranks]
+    out = {"routings": len(got[0]),
+           "ranks_agree": all(len(g) == len(got[0]) and all(
+               torch.equal(a, b) for a, b in zip(g, got[0])) for g in got)}
+    if one is not None:  # its prefill's routings come first
+        check(len(one["routes"]) >= len(got[0]) > 0,
+              f"{name}: {len(got[0])} routings on the ranks, {len(one['routes'])} in one process")
+        flips = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                 for a, b in zip(got[0], one["routes"])]
+        out.update(routing_flips=sum(flips), routing_flips_max_layer=max(flips),
+                   tokens_a_layer=int(got[0][0].shape[0] * got[0][0].shape[1]))
+    return out
+
+
+MOE_FAULTS = ("moe_leave", "every_expert")
+
+
+def moe_leg_checks(tag, name, c, lim):
+    """Leg ``name`` of ``tag`` within its bounds against one process, and
+    its ranks routing alike."""
+    check(c["ranks_agree"], f"{tag} {name}: the ranks of the model group routed apart")
+    check(c["prefill_rel_err"] < lim[0] and c["decode_max_rel_err"] < lim[1],
+          f"{tag} {name}: rel errs (prefill, decode) {c['prefill_rel_err']}, "
+          f"{c['decode_max_rel_err']} against one process, bounds {lim}")
+
+
+def phase_serve_tp_arctic(device, workdir, cards):
+    """Phase 18's arctic-480b legs, on 4 of ``cards`` cards: at full width
+    over 4 ranks (NCCL), held to one process on card 0 in bf16 at
+    ARCTIC_ONE_LAYERS (phase 8's batch, cache and decode steps) and timed
+    at ARCTIC_LAYERS, every rank routing alike.  Returns the metrics and
+    the ranks' ``flash_attention`` launches of the timed prefill."""
+    import os
+
+    out = {}
+    shape = dict(B=SERVE_B, P=SERVE_P, cap=SERVE_CAP)
+    cut = tp_cfg(ARCTIC_ARCH, "bfloat16", ARCTIC_ONE_LAYERS)
+    one, tokens, out["one_process_prefill_s"] = tp_one_process(
+        device, cut, {"k": "pallas", "d": "dense", "p": "blocked"}, steps=SERVE_STEPS, **shape)
+    lim, out["dense_vs_blocked"] = tp_bounds(one, "bfloat16")
+    legs = [dict(shape, name="cut", cfg=cut, tokens=tokens, keep=True, warm=True, routes=True),
+            dict(shape, name="full", cfg=tp_cfg(ARCTIC_ARCH, "bfloat16", ARCTIC_LAYERS),
+                 tokens=tokens, keep=False, warm=True, routes=True)]
+    tag = "serve_tp_arctic_480b_mp4"
+    # A rank draws each layer's whole expert leaves (17.9 GB a leaf in
+    # float32) and keeps a quarter of each: in fixed segments the cache
+    # fragments (stacking 5 layers' shares found no 10.4 GiB block in 38.5
+    # GiB reserved), so the ranks map their memory in expandable ones.
+    old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        res = tp_run(device, workdir, tag, 4, *tp_ranks(device, 4, cards), legs)
+    finally:
+        if old is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old
+    c = out["cut"] = dict(tp_compare("cut", res, one, lim), **moe_routing("cut", res, one))
+    moe_leg_checks(tag, f"cut at {ARCTIC_ONE_LAYERS} layers", c, lim)
+    full = out["full_routing"] = moe_routing("full", res)
+    check(full["ranks_agree"], f"{tag} full: the ranks of the model group routed apart")
+    out["full"] = {r["rank"]: r["full"][0] for r in res}
+    print(f"  {tag}: cut={c!r} full routing={full!r}")
+    return out, sum(r["full"][0]["flash_launches_per_prefill"] for r in res)
+
+
+def phase_serve_tp_moe(device, workdir, cards=None):
+    """Phase 18, cell ``serve_tp_moe_cards``: tensor-parallel serving of
+    the MoE family over ranks whose ``model`` axis spans them
+    (``make_prefill`` / ``make_decode_step`` over the mesh; each rank
+    holding its share of the reference's specs: E/m experts, its columns
+    of the shared experts and of the dense FFN, its heads; every token
+    routed on every rank, one all-reduce a MoE layer).
+
+    qwen2-moe-a2.7b at full width and depth, first in one process on
+    ``device`` (bf16 through the kernel, dense and blocked routes, and
+    float32 at MOE_F32_LAYERS; their logits, tokens and routings written
+    to ``workdir`` and the card freed), then over MOE_TP_M gloo ranks of
+    the one card, or min(cards, 4) cards over NCCL: bf16 with phase 8's
+    batch, cache and 32 decode steps fed the one-process greedy tokens,
+    held to the one-process kernel route at phase 8's bound, float32
+    against 1e-4 with the one-process routing replayed (phase 11's
+    matched routing: a float32 token whose experts flip on the last bits
+    moves the logits past 1e-4); each planted fault of MOE_FAULTS on rank
+    1, under the same replay, must fail the prefill check.  Every rank
+    must route every token as rank 0 does in its own warm-up prefill; the
+    tokens whose experts flip there against one process are counted.  On 4
+    cards, arctic-480b at full width over 4 (``phase_serve_tp_arctic``).
+    Each rank's
+    ``flash_attention`` launches a prefill, peak memory, bytes held and
+    collectives (count, type, µs) are printed; ``flash_attention`` is
+    timed at the per-rank shapes (``MOE_TP_FLASH``) beside SDPA.  Returns
+    the metrics, the launches over the ranks of each per-rank shape's bf16
+    prefill, and its timings."""
+    import torch
+
+    cuda = device.type == "cuda"
+    n = cards or (min(torch.cuda.device_count(), 4) if cuda else 1)
+    m = MOE_TP_M if n == 1 else min(n, 4)
+    workdir.mkdir(parents=True, exist_ok=True)
+    out = {"cards": n, "model_par": m}
+    shape = dict(B=SERVE_B, P=SERVE_P, cap=SERVE_CAP)
+    three = {"k": "pallas", "d": "dense", "p": "blocked"}
+    cfg_bf, cfg_f32 = tp_cfg(MOE_ARCH, "bfloat16"), tp_cfg(MOE_ARCH, "float32", MOE_F32_LAYERS)
+    one_bf, tok_bf, out["one_process_prefill_s"] = tp_one_process(
+        device, cfg_bf, three, steps=SERVE_STEPS, **shape)
+    one_f32, tok_f32, _ = tp_one_process(device, cfg_f32, {"k": "pallas"}, steps=SERVE_STEPS,
+                                         **shape)
+    torch.save({"bfloat16": (one_bf, tok_bf), "float32": (one_f32, tok_f32)},
+               workdir / "qwen2_moe_one_process.pt")
+    lim_bf, out["one_process_dense_vs_blocked"] = tp_bounds(one_bf, "bfloat16")
+    lim_f32, _ = tp_bounds(one_f32, "float32")
+    backend, rank_units = tp_ranks(device, m, n)
+    base = dict(shape, keep=True, warm=True, routes=True)
+    # float32 takes the one-process routing (phase 11's matched routing):
+    # its prefill's and decode steps', or the prefill's alone for a fault
+    L32 = cfg_f32.num_layers
+    legs = [dict(base, name="bfloat16", cfg=cfg_bf, tokens=tok_bf),
+            dict(base, name="float32", cfg=cfg_f32, tokens=tok_f32, replay=one_f32["routes"]),
+            *(dict(base, name=f"fault_{f}", cfg=cfg_f32, tokens=[], fault_rank=1, fault=f,
+                   warm=False, replay=one_f32["routes"][:L32]) for f in MOE_FAULTS)]
+    tag = f"serve_tp_qwen2_moe_a2_7b_mp{m}"
+    res = tp_run(device, workdir, tag, m, backend, rank_units, legs)
+    for name, one, lim in (("bfloat16", one_bf, lim_bf), ("float32", one_f32, lim_f32)):
+        out[name] = dict(tp_compare(name, res, one, lim), **moe_routing(name, res, one))
+    print(f"  {tag}: bfloat16={out['bfloat16']!r} float32={out['float32']!r}")
+    for name, lim in (("bfloat16", lim_bf), ("float32", lim_f32)):
+        moe_leg_checks(tag, name, out[name], lim)
+    for f in MOE_FAULTS:
+        e = out[f"fault_{f}"] = tp_compare(f"fault_{f}", res, one_f32, lim_f32)["prefill_rel_err"]
+        check(e >= max(lim_f32[0], lim_bf[0]),
+              f"{tag}: the planted fault {f} passed the prefill check ({e} < {lim_f32[0]})")
+    out["ranks"] = {r["rank"]: {leg: r[leg][0] for leg in ("bfloat16", "float32")} for r in res}
+    launches = {f"qwen2_moe_a2_7b_mp{m}": sum(r["bfloat16"][0]["flash_launches_per_prefill"]
+                                              for r in res)}
+    print(f"  {tag}: " + " ".join(f"{k}={out[k]!r}" for k in (
+        "one_process_prefill_s", "one_process_dense_vs_blocked",
+        *(f"fault_{f}" for f in MOE_FAULTS))))
+    if n >= 4:
+        out["arctic"], launches["arctic_480b_mp4"] = phase_serve_tp_arctic(device, workdir, n)
+    times = {}
+    if cuda:
+        for key, case in MOE_TP_FLASH.items():
+            times[key] = t = time_flash(device, "bfloat16", case=case)
+            print(f"  flash_attention {key} at {case} bfloat16: " + " ".join(
                 f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
     return out, launches, times
 
@@ -4121,6 +4427,22 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
     lap("17")
+    print("== phase 18: tensor-parallel MoE serving over ranks, serve_tp_moe_cards")
+    torch.cuda.empty_cache()
+    _, moe_tp_launches, moe_tp_flash = phase_serve_tp_moe(device, ROOT / "build" / "serve_tp")
+    print(f"  tensor-parallel MoE serving launches (over the ranks): "
+          f"flash_attention={moe_tp_launches}")
+    for shape, n in moe_tp_launches.items():
+        check(n > 0, f"flash_attention ({shape}) was never launched on the ranks' heads")
+        t = moe_tp_flash[shape]
+        kernels.append(dict(
+            name=f"flash_attention_{shape}", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:127", launches=n,
+            max_abs_err=model_err["flash_by_case"][MOE_TP_FLASH[shape], "bfloat16"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    lap("18")
     print(f"  phase_seconds={laps} total_s={time.perf_counter() - t_start:.1f}")
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -124,6 +124,43 @@ def leave_model(x: torch.Tensor) -> torch.Tensor:
     return all_reduce(x, group)
 
 
+@contextlib.contextmanager
+def data_context(mesh):
+    """Install the mesh whose data group splits the batch over ranks (the
+    train step over ranks), for :func:`data_mean`; None installs none."""
+    old = getattr(_tls, "data_mesh", None)
+    _tls.data_mesh = mesh
+    try:
+        yield
+    finally:
+        _tls.data_mesh = old
+
+
+class _DataMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.mean(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def data_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a statistic of this rank's equal share of the batch,
+    averaged over the data group of the mesh :func:`data_context`
+    installed: the whole batch's, as one process computes it; ``x``
+    itself without one.  Its gradient passes as it is: every rank's loss
+    holds the same average, and the train step averages the ranks'
+    gradients, so each rank's share is counted once."""
+    mesh = getattr(_tls, "data_mesh", None)
+    if mesh is None or mesh.data_group is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _DataMean.apply(x, mesh)
+    return mesh.mean(x)
+
+
 def model_rank() -> int:
     """This rank's position along ``model`` in ``current_mesh()``'s model
     group; 0 without one."""

@@ -3,7 +3,13 @@
 Twin of ``repro.models.model``.  Families: dense / moe / ssm / hybrid /
 vlm / audio (enc-dec); MoE layers take ``models/moe.py``'s dense
 dispatch, or its expert-parallel ``moe_apply_ep`` under a
-``distributed.ctx.mesh_context`` (``Runtime.moe_impl``).  One stacked
+``distributed.ctx.mesh_context`` (``Runtime.moe_impl``).  Where the
+``model`` axis spans ranks (tensor parallelism), a MoE layer whose
+leaves are the rank's share of the specs takes ``moe_apply_tp``: every
+token routed on every rank, the rank's experts (or their hidden columns)
+and its columns of the shared experts and the dense FFN computed, and one
+all-reduce a layer; ``moe_apply_ep`` computes the rank's own column.  The
+SSM and hybrid families raise there (``check_tensor_parallel``).  One stacked
 parameter tree with a leading ``L`` axis, as in the reference, so the
 reference's parameters carry over leaf for leaf
 (``core/carry.params_from_numpy``).  Where the reference scans over
@@ -380,6 +386,20 @@ class Model:
         """The dense FFN, a model-parallel region where the specs split it."""
         return swiglu_apply(p, x, self._split(p["gate"].shape[-1], self.cfg.d_ff))
 
+    def _moe_split(self, p: dict) -> bool:
+        """Whether the specs split a MoE sublayer ``p`` over the model
+        group: its experts (or their hidden columns), the shared experts'
+        or the dense FFN's columns."""
+        cfg = self.cfg
+        e_ff = cfg.moe_d_ff or cfg.d_ff
+        g = p["experts"]["gate"]
+        split = self._split(g.shape[0] * g.shape[-1], cfg.num_experts * e_ff)
+        if "shared" in p:
+            split |= self._split(p["shared"]["gate"].shape[-1], cfg.num_shared_experts * e_ff)
+        if "dense_ffn" in p:
+            split |= self._split(p["dense_ffn"]["gate"].shape[-1], cfg.d_ff)
+        return split
+
     def _mlp_sublayer(self, bp, h):
         cfg = self.cfg
         if cfg.uses_moe:
@@ -391,6 +411,9 @@ class Model:
                                                 capacity_factor=self.rt.capacity_factor)
                 if self.rt.moe_impl == "ep":
                     raise RuntimeError("moe_impl='ep' requires an active mesh_context")
+            if self._moe_split(bp["moe"]):
+                return moe_mod.moe_apply_tp(bp["moe"], x, cfg,
+                                            capacity_factor=self.rt.capacity_factor)
             return moe_mod.moe_apply(bp["moe"], x, cfg,
                                      capacity_factor=self.rt.capacity_factor)
         x = rms_norm(h, bp["mlp_ln"], cfg.norm_eps)
@@ -837,16 +860,15 @@ class Model:
 
 def check_tensor_parallel(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family whose layers have no
-    tensor-parallel forward yet (MoE, SSM, hybrid): the specs would split
-    its leaves over a ``model`` axis across ranks while its forward
-    computes on whole ones."""
-    if cfg.uses_moe or cfg.uses_ssm:
-        kind = "MoE" if cfg.uses_moe else ("hybrid" if cfg.uses_attention else "SSM")
+    tensor-parallel forward yet (SSM, hybrid): the specs would split its
+    leaves over a ``model`` axis across ranks while its forward computes
+    on whole ones."""
+    if cfg.uses_ssm:
+        kind = "hybrid" if cfg.uses_attention else "SSM"
         raise NotImplementedError(
             f"{cfg.name}: a model axis across ranks for the {kind} family is not implemented "
-            "(the expert-parallel exchange and the SSM/hybrid layers under tensor "
-            "parallelism are the next slice); the dense, vision and encoder-decoder "
-            "families run it")
+            "(the SSM and hybrid layers under tensor parallelism are the next slice); the "
+            "dense, MoE, vision and encoder-decoder families run it")
 
 
 def build_model(cfg: ModelConfig, rt: Runtime = Runtime()) -> Model:

@@ -30,8 +30,18 @@ token count, positions counted over the shard's flattened tokens), and
 computes their part of the output; the columns' parts are summed (the
 reference's ``psum``).  On one card the columns run one by one and are
 summed in column order, with no float atomics.  On a mesh over ranks
-(``distributed/meshes.py``) ``x`` is already this rank's data shard and
-the model axis lies within the rank.
+(``distributed/meshes.py``) ``x`` is already this rank's data shard; where
+the model axis spans the ranks too, each rank computes its own column.
+
+Under tensor parallelism (a ``model`` axis across ranks) ``moe_apply_tp``
+is the dense dispatch on the rank's share of the reference's specs: its
+E/m experts (or every expert's share of the hidden columns where E does
+not divide the axis), its columns of the shared experts and of the dense
+FFN.  The experts stay where they are and the residual stream stays
+replicated: each rank routes every token, computes the slots routed to
+its experts, and the ranks' partial outputs meet in one all-reduce a
+layer (the reference's ``psum`` over ``model``, ``distributed/ctx.py``'s
+``leave_model``); no token moves.
 
 Supports qwen2-moe (shared experts + routed) and arctic (dense-residual
 FFN in parallel with the routed experts).
@@ -44,6 +54,13 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.ctx import (
+    data_mean,
+    enter_model,
+    leave_model,
+    model_group,
+    model_rank,
+)
 from repro_torch.models.common import (
     dense_init,
     normal,
@@ -86,11 +103,18 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def route(p: dict, x: torch.Tensor, cfg, capacity_factor: float = 1.25):
-    """Routing and dispatch positions of ``x`` (B, S, d): each of the
-    B·S·k slots' expert ``flat_e``, its position ``pos_clip`` in that
-    expert's buffer (``C`` for a dropped slot), ``keep``, the
-    renormalised weights ``flat_w``, and ``C``."""
+def route(p: dict, x: torch.Tensor, cfg, capacity_factor: float = 1.25, *,
+          e_base: int = 0, n_exp: int = 0):
+    """Routing and dispatch positions of ``x`` (B, S, d), every token over
+    all E experts, the slots kept for experts ``[e_base, e_base + n_exp)``
+    (all E when ``n_exp`` is 0): each of the B·S·k slots' expert
+    ``flat_e`` counted from ``e_base`` (``n_exp`` for a slot of another
+    expert), its position ``pos_clip`` in that expert's buffer (``C`` for
+    a slot dropped or another's), ``keep``, the renormalised weights
+    ``flat_w``, and ``C`` (from the whole row's tokens).  A slot's
+    position among its expert's slots reads only that expert's column of
+    the one-hot, so counting over a share of the experts (a rank's, under
+    tensor parallelism) drops the slots one process drops."""
     B, S, _ = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     C = max(1, math.ceil(capacity_factor * S * k / E))
@@ -98,24 +122,32 @@ def route(p: dict, x: torch.Tensor, cfg, capacity_factor: float = 1.25):
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     # per-row position-in-expert (B, S*k)
     flat_e = top_e.reshape(B, S * k)
-    pos = torch.cumsum(F.one_hot(flat_e, E), dim=1) - 1
+    cols = E
+    if n_exp and n_exp < E:
+        own = (flat_e >= e_base) & (flat_e < e_base + n_exp)
+        flat_e = torch.where(own, flat_e - e_base, torch.full_like(flat_e, n_exp))
+        cols = n_exp + 1  # the last column gathers the other experts' slots
+    pos = torch.cumsum(F.one_hot(flat_e, cols), dim=1) - 1
     pos_of = torch.gather(pos, 2, flat_e[..., None])[..., 0]
     keep = pos_of < C
+    if cols != E:
+        keep = keep & own
     pos_clip = torch.where(keep, pos_of, torch.full_like(pos_of, C))
     return flat_e, pos_clip, keep, top_w.reshape(B, S * k), C
 
 
 def dispatch(x: torch.Tensor, flat_e, pos_clip, E: int, C: int) -> torch.Tensor:
-    """Scatter each slot's token into the (E, B, C, d) expert buffers: each
-    kept slot is written once; dropped slots all land in scratch slot C,
-    which is cut off."""
+    """Scatter each slot's token into the (E, B, C, d) buffers of the E
+    experts held: each kept slot is written once; dropped slots all land
+    in scratch slot C, and another expert's slots (``flat_e`` = E) in a
+    scratch expert, both cut off."""
     B, S, d = x.shape
     k = flat_e.shape[1] // S
     tok = torch.repeat_interleave(x, k, dim=1)  # (B, S*k, d), token per slot
-    buf = torch.zeros((E, B, C + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((E + 1, B, C + 1, d), dtype=x.dtype, device=x.device)
     b_idx = torch.arange(B, device=x.device)[:, None].expand(B, S * k)
     buf[flat_e, b_idx, pos_clip] = tok
-    return buf[:, :, :C]
+    return buf[:E, :, :C]
 
 
 def expert_ffn(w: dict, buf: torch.Tensor) -> torch.Tensor:
@@ -130,7 +162,7 @@ def combine(eo: torch.Tensor, flat_e, pos_clip, keep, flat_w, S: int) -> torch.T
     k slots: (E, B, C, d) -> (B, S, d)."""
     _, B, _, d = eo.shape
     k = flat_e.shape[1] // S
-    eo = F.pad(eo, (0, 0, 0, 1))  # the scratch slot reads zeros
+    eo = F.pad(eo, (0, 0, 0, 1, 0, 0, 0, 1))  # the scratch slot and expert read zeros
     b_idx = torch.arange(B, device=eo.device)[:, None].expand(B, S * k)
     back = eo[flat_e, b_idx, pos_clip]  # (B, S*k, d)
     back = back * (keep[..., None] * flat_w[..., None]).to(back.dtype)
@@ -149,23 +181,101 @@ def residual_ffn(p: dict, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def routed_experts(p: dict, x: torch.Tensor, cfg, capacity_factor: float = 1.25,
+                   e_base: int = 0) -> torch.Tensor:
+    """The routed experts' part of the output for ``x`` (B, S, d): every
+    token routed with the whole ``router``; the slots of the experts that
+    ``p["experts"]`` holds (``[e_base, e_base + E_held)``, all their hidden
+    columns or a share of them) dispatched, computed and combined."""
+    n = p["experts"]["gate"].shape[0]
+    flat_e, pos_clip, keep, flat_w, C = route(p, x, cfg, capacity_factor, e_base=e_base,
+                                              n_exp=n)
+    eo = expert_ffn(p["experts"], dispatch(x, flat_e, pos_clip, n, C))
+    return combine(eo, flat_e, pos_clip, keep, flat_w, x.shape[1])
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg, *, capacity_factor: float = 1.25
               ) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d)."""
-    flat_e, pos_clip, keep, flat_w, C = route(p, x, cfg, capacity_factor)
-    buf = dispatch(x, flat_e, pos_clip, cfg.num_experts, C)
-    eo = expert_ffn(p["experts"], buf)
-    out = combine(eo, flat_e, pos_clip, keep, flat_w, x.shape[1])
-    return residual_ffn(p, x, out)
+    return residual_ffn(p, x, routed_experts(p, x, cfg, capacity_factor))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over a model group across ranks (the reference's specs)
+# ---------------------------------------------------------------------------
+
+
+def _residual_parts(p: dict, x, xe, cfg, inside: list, outside: list) -> None:
+    """The shared experts (gated) and the dense residual FFN of ``x``:
+    appended to ``inside`` where the rank holds a share of their columns
+    (computed on ``xe``, ``x`` entering the region, with ``shared_gate``
+    entering too, as the gate weighs a partial sum), else whole to
+    ``outside``."""
+    e_ff = cfg.moe_d_ff or cfg.d_ff
+    if "shared" in p:
+        split = p["shared"]["gate"].shape[-1] < cfg.num_shared_experts * e_ff
+        xs, sg = (xe, enter_model(p["shared_gate"])) if split else (x, p["shared_gate"])
+        gate = torch.sigmoid(xs.float() @ sg).to(x.dtype)
+        (inside if split else outside).append(swiglu_apply(p["shared"], xs) * gate)
+    if "dense_ffn" in p:
+        split = p["dense_ffn"]["gate"].shape[-1] < cfg.d_ff
+        (inside if split else outside).append(swiglu_apply(p["dense_ffn"], xe if split else x))
+
+
+def _leave(inside: list, outside: list) -> torch.Tensor:
+    """The rank's partial sums ``inside`` added and summed over the model
+    group (one all-reduce), plus the parts ``outside`` it computed whole."""
+    out = None
+    if inside:
+        part = inside[0]
+        for t in inside[1:]:
+            part = part + t
+        out = leave_model(part)
+    for t in outside:
+        out = t if out is None else out + t
+    return out
+
+
+def moe_apply_tp(p: dict, x: torch.Tensor, cfg, *, capacity_factor: float = 1.25
+                 ) -> torch.Tensor:
+    """``moe_apply`` of ``x`` (B, S, d), the layer's normed input and the
+    same on every rank of the model group, where the rank holds its share
+    of the reference's specs (``distributed/sharding.py``): E/m experts
+    (``e_base = model_rank() · E/m``) where E divides the axis, else every
+    expert's share of the hidden columns; the shared experts' and the
+    dense FFN's columns where they divide it.  Every token is routed with
+    the whole ``router`` and the row's capacity C of ``moe_apply``; the
+    rank dispatches, computes and combines only its own slots (or its
+    hidden columns of all of them), adds its shares of the shared experts
+    and the dense FFN, and the sum leaves the region once (one all-reduce,
+    the reference's ``psum``).  ``x``, ``router`` and ``shared_gate``
+    enter it: each rank's gradient of them is partial.  A part whose
+    leaves the specs leave whole is computed whole, outside the region."""
+    E, e_ff = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    w = p["experts"]
+    n = w["gate"].shape[0]
+    xe = enter_model(x)
+    inside, outside = [], []
+    if n < E or w["gate"].shape[-1] < e_ff:
+        q = {"router": enter_model(p["router"]), "experts": w}
+        inside.append(routed_experts(q, xe, cfg, capacity_factor,
+                                     e_base=model_rank() * n if n < E else 0))
+    else:
+        outside.append(routed_experts(p, x, cfg, capacity_factor))
+    _residual_parts(p, x, xe, cfg, inside, outside)
+    return _leave(inside, outside)
 
 
 def moe_aux_loss(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Load-balancing auxiliary loss (Switch-style f·P)."""
+    """Load-balancing auxiliary loss (Switch-style f·P), of the whole
+    batch: where the train step splits it over ranks, the fractions and
+    mean probabilities are averaged over the data group
+    (``distributed.ctx.data_mean``) before their product."""
     probs = router_probs(p, x)  # (B, S, E)
     top_e = top_k(probs, cfg.num_experts_per_tok)[1]
     E = cfg.num_experts
-    frac = F.one_hot(top_e, E).float().mean(dim=(0, 1, 2))  # fraction routed
-    imp = probs.mean(dim=(0, 1))  # mean router prob
+    frac = data_mean(F.one_hot(top_e, E).float().mean(dim=(0, 1, 2)))  # fraction routed
+    imp = data_mean(probs.mean(dim=(0, 1)))  # mean router prob
     return E * torch.sum(frac * imp)
 
 
@@ -217,7 +327,11 @@ def _local_expert_compute(x, logits, w_gate, w_up, w_down, *, e_base, k, C):
 
 def moe_apply_ep(p: dict, x: torch.Tensor, cfg, mesh, *,
                  capacity_factor: float = 1.25) -> torch.Tensor:
-    """Expert-parallel MoE over ``mesh`` (model axis = EP); x (B, S, d)."""
+    """Expert-parallel MoE over ``mesh`` (model axis = EP); x (B, S, d).
+    Where the ``model`` axis spans ranks, this rank computes column
+    ``model_rank()`` alone, with the E/mp experts it holds, and the
+    columns' parts (its shares of the shared experts and the dense FFN
+    with them) leave the region once, as in ``moe_apply_tp``."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     mp = mesh.shape.get("model", 1)
@@ -234,6 +348,18 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg, mesh, *,
     T = B_loc * S
     C = max(1, math.ceil(capacity_factor * T * k / E))
     w = p["experts"]
+    if model_group() is not None:  # the model axis across ranks: one column here
+        if w["gate"].shape[0] != E_loc:
+            raise ValueError(f"a rank of a model axis of {mp} holds {w['gate'].shape[0]} "
+                             f"experts, not {E_loc}")
+        xe = enter_model(x)
+        x2 = xe.reshape(T, d)
+        logits = x2.float() @ enter_model(p["router"])
+        inside = [_local_expert_compute(x2, logits, w["gate"], w["up"], w["down"],
+                                        e_base=model_rank() * E_loc, k=k, C=C).reshape(B, S, d)]
+        outside = []
+        _residual_parts(p, x, xe, cfg, inside, outside)
+        return _leave(inside, outside)
     outs = []
     for i in range(n_shards):
         x2 = x[i * B_loc:(i + 1) * B_loc].reshape(T, d)

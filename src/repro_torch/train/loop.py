@@ -80,8 +80,8 @@ class Trainer:
     (ranks that share a card need gloo); units on several cards run as
     ranks without it, over the backend their placement gives
     (``distributed.procs.backend_for``).  ``model_par``: the ``model``
-    axis; over ranks, tensor parallelism (the MoE, SSM and hybrid
-    families raise)."""
+    axis; over ranks, tensor parallelism (the SSM and hybrid families
+    raise)."""
 
     def __init__(
         self,

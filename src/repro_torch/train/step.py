@@ -18,7 +18,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.ctx import mesh_context
+from repro_torch.distributed.ctx import data_context, mesh_context
 from repro_torch.distributed.meshes import NamedSharding, P
 from repro_torch.models.model import Model, check_tensor_parallel
 from repro_torch.optim import AdamW, compress_grads, init_residuals
@@ -99,9 +99,10 @@ def make_train_step(
     the one-process step computes it, and every microbatch's in float32
     under ``grad_accum``.  The loss and metrics are the ranks' mean
     (exact for the token-mean loss on equal shares of rows; MoE's
-    balance loss is each rank's own).  With ``compress`` the gradients are
-    all-reduced, compressed whole and then split, as the reference
-    compresses its reduced gradients.  ``opt_shardings`` (the optimizer
+    balance loss is the whole (micro)batch's, its statistics averaged
+    over the ranks under ``distributed.ctx.data_context``).  With
+    ``compress`` the gradients are all-reduced, compressed whole and then
+    split, as the reference compresses its reduced gradients.  ``opt_shardings`` (the optimizer
     state's tree) goes to ``AdamW.update``.  On a mesh of one process the
     layout is the gradients as they are, and nothing changes.
 
@@ -111,11 +112,13 @@ def make_train_step(
     ``distributed/ctx.py`` under ``mesh_context(mesh)``, and each gradient
     comes out model-local and complete: the gradients of the leaves the
     specs replicate but a region uses (``wk``/``wv`` with fewer KV heads
-    than the axis, ``q_norm``/``k_norm``) are summed over the model group
-    by the region's entry in the backward pass.  The reduction above then
-    runs over the data group, and the loss and metrics are averaged over
-    it.  Gradient compression and int8 moments have no tensor-parallel
-    layout yet and raise."""
+    than the axis, ``q_norm``/``k_norm``, a MoE layer's ``router`` and
+    ``shared_gate``) are summed over the model group by the region's
+    entry in the backward pass.  The reduction above then runs over the
+    data group, and the loss and metrics are averaged over it.  The SSM
+    and hybrid families raise there (``check_tensor_parallel``), as do
+    gradient compression and int8 moments of a leaf split over ``model``,
+    which have no tensor-parallel layout yet."""
     mesh = None if grad_shardings is None else leaves(grad_shardings)[0].mesh
     ranked = mesh is not None and mesh.group is not None
     tp = mesh if ranked and mesh.model_group is not None else None
@@ -130,7 +133,7 @@ def make_train_step(
         return tree_map(lambda s, g: s.reduce(g), whole, grads) if ranked else grads
 
     def train_step(state: dict, batch: dict) -> Tuple[dict, Dict[str, torch.Tensor]]:
-        with _within(tp):
+        with _within(tp), data_context(mesh if ranked else None):
             return step(state, batch)
 
     def step(state: dict, batch: dict) -> Tuple[dict, Dict[str, torch.Tensor]]:

@@ -488,11 +488,11 @@ def test_dryrun_on_the_card_allocates_nothing(device):
     assert 0.95 <= rec["cost_totals"]["flops"] / rec["model_flops_total"] <= 1.10
 
 
-def test_tensor_parallel_prefill_on_the_card_matches_one_process(device, tmp_path):
-    """Reduced granite-8b's prefill over 2 gloo ranks of the card, the
-    model axis across them, on the kernel route (each rank launching
-    ``flash_attention`` on its own 2 heads, once a layer), against the
-    one-process kernel route on the same weights."""
+def tp_prefill_on_the_card(arch, device, tmp_path):
+    """Reduced ``arch``'s prefill over 2 gloo ranks of the card, the model
+    axis across them, on the kernel route, against the one-process kernel
+    route on the same weights: each rank launches ``flash_attention`` once
+    a layer, and the logits agree within 1e-4."""
     import torch_tp_ranks as TP
     from repro_torch.configs import get_config, reduced
     from repro_torch.distributed import procs
@@ -501,7 +501,7 @@ def test_tensor_parallel_prefill_on_the_card_matches_one_process(device, tmp_pat
     from repro_torch.models import Runtime, build_model
     from repro_torch.train import make_prefill
 
-    cfg = reduced(get_config("granite-8b")).replace(dtype="float32")
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
     model = build_model(cfg, Runtime(attn_impl="pallas", remat="none"))
     params = model.init(torch.Generator(device=device).manual_seed(0))
     before = FA.STATS["flash_attention"]
@@ -509,10 +509,22 @@ def test_tensor_parallel_prefill_on_the_card_matches_one_process(device, tmp_pat
         want, _ = make_prefill(model)(params, {k: v.to(device)
                                                for k, v in TP.serve_batch(cfg).items()})
     assert FA.STATS["flash_attention"] == before + cfg.num_layers
-    got = procs.spawn(TP.card_prefill, ("granite-8b",),
+    got = procs.spawn(TP.card_prefill, (arch,),
                       units=[LogicalDevice(i, device) for i in range(2)],
                       jobdir=str(tmp_path), backend="gloo", timeout=300)
     for logits, launches in got:
         assert launches == cfg.num_layers
         err = float((logits - want.cpu()).abs().max() / want.abs().max())
         assert err < 1e-4, err
+
+
+def test_tensor_parallel_prefill_on_the_card_matches_one_process(device, tmp_path):
+    """Reduced granite-8b: each rank on its own 2 heads."""
+    tp_prefill_on_the_card("granite-8b", device, tmp_path)
+
+
+def test_tensor_parallel_moe_prefill_on_the_card_matches_one_process(device, tmp_path):
+    """Reduced qwen2-moe-a2.7b: each rank on its own 2 heads, 2 of the 4
+    experts and half the shared expert's columns, one all-reduce a MoE
+    layer."""
+    tp_prefill_on_the_card("qwen2-moe-a2.7b", device, tmp_path)

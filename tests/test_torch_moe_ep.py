@@ -9,6 +9,17 @@ model's ``moe_impl="ep"`` / ``"auto"`` under ``mesh_context`` takes the
 path in both packages.  At mp 4 and on a (2, 2) mesh, against the
 reference run on 4 emulated host devices in a subprocess (``slow``, as
 ``tests/test_multidevice.py``).
+
+The tensor-parallel layer ``moe_apply_tp`` in one process: each of m
+ranks' shares of the reference's specs (E/m experts, or every expert's
+share of the hidden columns where E does not divide m, and the shared
+experts' and dense FFN's columns) run in turn with ``model_rank`` set to
+the rank's (no model group, so the region's all-reduce is the identity),
+and their partial outputs summed: rel. 1e-5 of the reference's
+``moe_apply`` at capacity factor 1.0 (slots dropped).  A rank's routing
+counted over its own experts' columns keeps and places the slots that
+one process does.  The same layer over gloo ranks is in
+``tests/test_torch_tensor_parallel.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -169,3 +180,75 @@ def test_moe_apply_ep_matches_reference_mp4(tmp_path):
         mesh = make_mesh(dims, ("data", "model"), devices=units("cpu", count=4))
         _rel_close(PM.moe_apply_ep(p, x, cfg, mesh, capacity_factor=float(cf)),
                    arrays[key], 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel layer, moe_apply_tp, on each rank's share in turn
+# ---------------------------------------------------------------------------
+
+# (arch, overrides, m): E 4 over 2 and 4 ranks, and E 3 over 2 (the hidden
+# columns split, as shardable does not pad it here)
+TP_CASES = [(name, {}, m) for name in MOE for m in (2, 4)] + [
+    ("qwen2-moe-a2.7b", {"num_experts": 3}, 2)]
+
+
+def _rank_share(cfg, p, m, r):
+    """Rank ``r``'s share of the MoE leaves ``p`` under the port's specs
+    on a (1, m) mesh."""
+    from repro_torch.distributed.meshes import AbstractMesh
+    from repro_torch.distributed.sharding import param_spec_for
+    from repro_torch.tree import leaves_with_paths, set_by_path
+
+    out = {}
+    mesh = AbstractMesh((1, m), ("data", "model"))
+    for path, t in leaves_with_paths(p):
+        spec = param_spec_for(cfg, mesh, f"moe/{path}", tuple(t.shape))
+        for d, s in enumerate(spec):
+            if s == "model":
+                k = t.shape[d] // m
+                t = t.narrow(d, r * k, k)
+        set_by_path(out, path, t)
+    return out
+
+
+@pytest.mark.parametrize("name,kw,m", TP_CASES)
+def test_moe_apply_tp_shares_sum_to_reference(name, kw, m, monkeypatch):
+    cf = 1.0
+    rcfg, pcfg = _cfgs(name)
+    rcfg, pcfg = rcfg.replace(**kw), pcfg.replace(**kw)
+    rp = RM.moe_init(jax.random.key(3), rcfg, jnp.float32)
+    pp = params_from_numpy(_np(rp), device="cpu")
+    x = np.random.default_rng(11).normal(size=(B, 32, rcfg.d_model)).astype(np.float32)
+    want = RM.moe_apply(rp, jnp.asarray(x), rcfg, capacity_factor=cf)
+    got = None
+    for r in range(m):
+        share = _rank_share(pcfg, pp, m, r)
+        assert share["experts"]["gate"].numel() * m == pp["experts"]["gate"].numel()
+        monkeypatch.setattr(PM, "model_rank", lambda r=r: r)
+        part = PM.moe_apply_tp(share, torch.from_numpy(x), pcfg, capacity_factor=cf)
+        got = part if got is None else got + part
+    _rel_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("name,kw,m", TP_CASES)
+def test_rank_routing_keeps_the_one_process_slots(name, kw, m):
+    """``route`` over a rank's experts alone (positions counted over
+    their columns) keeps, places and weighs exactly the slots of those
+    experts that ``route`` over all E keeps, at capacity factor 1.0."""
+    _, pcfg = _cfgs(name)
+    pcfg = pcfg.replace(**kw)
+    E = pcfg.num_experts
+    pp = PM.moe_init(torch.Generator().manual_seed(3), pcfg, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(B, 32, pcfg.d_model)).astype(np.float32))
+    e, pos, keep, w, C = PM.route(pp, x, pcfg, 1.0)
+    assert (~keep).sum() > 0  # the case drops slots
+    n = E // m if E % m == 0 else 1  # E 3 over 2: each expert alone
+    for r in range(E // n):
+        le, lpos, lkeep, lw, lC = PM.route(pp, x, pcfg, 1.0, e_base=r * n, n_exp=n)
+        own = (e >= r * n) & (e < (r + 1) * n)
+        assert lC == C and torch.equal(lw, w)
+        assert torch.equal(lkeep, keep & own)
+        assert torch.equal(le[lkeep] + r * n, e[lkeep])
+        assert torch.equal(lpos[lkeep], pos[lkeep])
+        assert bool((le[~own] == n).all()) and bool((lpos[~lkeep] == C).all())

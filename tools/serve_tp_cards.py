@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Phase 17 of ``chip_smoke.py`` alone: tensor-parallel serving over ranks.
+"""Phase 17 of ``chip_smoke.py`` alone: tensor-parallel serving over ranks
+(with ``--moe``, phase 18 alone: the MoE family).
 
-    python3 tools/serve_tp_cards.py [--cards N]
+    python3 tools/serve_tp_cards.py [--moe] [--cards N]
 
 Builds the kernels, then serves granite-8b at full width over 2 ranks
 whose ``model`` axis spans them -- 2 gloo ranks of one card, or a card
@@ -9,7 +10,11 @@ each over NCCL -- against the one-process kernel route on card 0, and on
 several cards qwen3-32b over 4 (or 2) cards: at 16 of its 64 layers
 against one process on card 0, and at full depth timed (prefill s, decode
 ms a step, the collectives' µs, each rank's peak memory).  Then
-``flash_attention`` at the per-rank shapes beside SDPA.  It prints each
+``flash_attention`` at the per-rank shapes beside SDPA.  ``--moe``
+serves qwen2-moe-a2.7b at full width and depth over 2 gloo ranks of one
+card (on several cards over min(cards, 4), a card each, then arctic-480b
+at full width over 4 cards), held to one process, with its planted
+faults (``chip_smoke.phase_serve_tp_moe``).  It prints each
 card's name and power limit, the phase's lines and, last, a JSON summary;
 any failed check raises.  Without a CUDA device it exits 2.
 """
@@ -32,6 +37,7 @@ import chip_smoke as CS  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cards", type=int, default=None)
+    ap.add_argument("--moe", action="store_true", help="phase 18 (the MoE family) alone")
     args = ap.parse_args()
     import torch
 
@@ -50,8 +56,9 @@ def main() -> int:
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    out, launches, times = CS.phase_serve_tp(torch.device("cuda", 0), ROOT / "build" / "serve_tp",
-                                             cards=args.cards)
+    phase = CS.phase_serve_tp_moe if args.moe else CS.phase_serve_tp
+    out, launches, times = phase(torch.device("cuda", 0), ROOT / "build" / "serve_tp",
+                                 cards=args.cards)
     print(f"phase_s={time.perf_counter() - t0!r}")
     print(json.dumps({"metrics": out, "launches": launches, "flash": times}, default=str))
     return 0
