@@ -94,6 +94,16 @@ layers), each rank holding its share of the experts, routing every token
 as the other ranks do and summing its partial output with theirs in one
 all-reduce a MoE layer, held to one process; a rank skipping that
 all-reduce, or computing every expert rather than its own, must fail it.
+Tensor-parallel SSM and hybrid serving (phase 19, ``serve_tp_ssm_cards``):
+mamba2-2.7b and hymba-1.5b at full width and depth over 2 gloo ranks of
+one card (on several cards a card each over NCCL, and on 4 over 4 too,
+with ``launch.train --smoke --model-par 2`` of each through a recovery),
+each rank holding its SSD heads and ``d_inner`` channels (B and C whole
+on every rank, the gated norm's mean square summed over the model group,
+one all-reduce a mixer; hymba's FFN columns, its attention whole at 25
+heads), held to one process in bf16 and float32 at full depth; a rank
+skipping its mixer's all-reduce, or normalising over its own channels,
+must fail it; ``ssd_scan`` timed on mamba2's heads a rank.
 
 Phases: 1 device and build (and the tensor-core instructions in the SASS
 of the flash kernels and the bf16 ssd kernels, the TMA loads of the bf16
@@ -104,7 +114,8 @@ elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer,
 10 the scheduler daemon, 11 MoE serving, 12 training, 13 co-scheduling,
 14 roofline, 15 serving the dense, vision and encoder-decoder families,
 16 training over ranks, 17 tensor-parallel serving over ranks, 18
-tensor-parallel MoE serving over ranks.
+tensor-parallel MoE serving over ranks, 19 tensor-parallel SSM and
+hybrid serving over ranks.
 ``score_reduce`` carries the idle-node guard in its one launch
 (``guard=``); phases 3-5 print its guarded calls, and phase 6 the
 guarded segments of the packed launches, one per staged burst.
@@ -222,6 +233,8 @@ SSD_CASES = (
     # N 16, and a chunk and a state size off the 16-row tiles
     (1, 256, 4, 32, 64, 256), (1, 2048, 4, 64, 64, 1024), (2, 512, 8, 128, 128, 256),
     (2, 512, 8, 32, 16, 128), (2, 192, 3, 64, 40, 96),
+    # mamba2-2.7b's layer on a rank's heads at model_par 2 and 4 (phase 19)
+    (2, 4096, 40, 64, 128, 256), (2, 4096, 20, 64, 128, 256),
 )
 SSD_TOL = 2e-4
 FLASH_PATH, SSD_PATH = HYMBA_FLASH, SSD_CASES[4]  # phase 7's timed shapes
@@ -296,6 +309,19 @@ TP_TIMEOUT_S = 900
 # card 0 at ARCTIC_ONE_LAYERS (27.3 GB a layer: card 0 alone holds one
 # while it stacks the layers' leaves)
 MOE_TP_M, ARCTIC_ARCH, ARCTIC_LAYERS, ARCTIC_ONE_LAYERS = 2, "arctic-480b", 5, 1
+# phase 19: the SSM and hybrid families served over SSM_TP_M ranks at full
+# width and depth (phase 8's batch, cache and steps), float32 at
+# SSM_F32_LAYERS (None: full depth; both fit one card beside the ranks'
+# shares); on 4 cards over 4 ranks too, and the training launcher at
+# model_par 2 through a recovery.  The bf16 bound's spread is also taken
+# between two one-process chunked SSD runs, at the config's chunk and half
+# of it (the same function, its sums in another order).  flash_attention
+# runs whole on every hymba rank (25 heads divide neither 2 nor 4), at row
+# 4's shape; ssd_scan is timed on mamba2's heads a rank (40 and 20).
+SSM_TP_ARCHS, SSM_TP_M, SSM_F32_LAYERS = ("mamba2-2.7b", "hymba-1.5b"), 2, None
+SSM_FAULTS, SSM_TRAIN_STEPS, SSM_FAIL_AT = ("ssm_leave", "local_norm"), 30, 18
+SSM_TP_FLASH = dict(hymba_1_5b_mp2=HYMBA_FLASH, hymba_1_5b_mp4=HYMBA_FLASH)
+SSM_RANK_SSD = dict(mamba2_2_7b_mp2=SSD_CASES[-2], mamba2_2_7b_mp4=SSD_CASES[-1])
 
 
 def check(cond, msg: str) -> None:
@@ -1760,9 +1786,10 @@ def time_flash(device, dtype="bfloat16", case=FLASH_PATH):
                 ops=ops, ops_issued=passes * ops, bytes=n_bytes, **extra)
 
 
-def time_ssd(device, dtype="bfloat16"):
-    """``ssd_scan`` at mamba2-2.7b's layer shape in ``dtype`` (bf16 is the
-    model's type): the call by CUDA events (its four kernels), its plain
+def time_ssd(device, dtype="bfloat16", case=SSD_PATH):
+    """``ssd_scan`` at ``case`` (mamba2-2.7b's layer shape unless given)
+    in ``dtype`` (bf16 is the model's type): the call by CUDA events (its
+    four kernels), its plain
     version, and each kernel's device µs per call from the profiler.  No
     single PyTorch call computes the SSD scan, so there is no library
     time.  The bound counts the work the function needs, once, at the
@@ -1777,7 +1804,6 @@ def time_ssd(device, dtype="bfloat16"):
     import torch
     from repro_torch.kernels import ssd_scan as SS
 
-    case = SSD_PATH
     B, S, nh, hp, N, Q = case
     args = ssd_inputs(case, getattr(torch, dtype), device, seed=99)
     # the products the function needs, two operations a multiply-add: C.B^T
@@ -3683,15 +3709,20 @@ class RouteReplay:
 def plant_fault(leg):
     """``leg["fault"]`` put in place on rank ``leg["fault_rank"]`` (nothing
     without one): ``"attn_leave"`` (the default, phase 17's:
-    ``attn_proj_skipping_leave``), ``"moe_leave"`` (the rank's MoE layers
-    keep their own partial sums: it takes part in the all-reduce, its
-    result dropped) or ``"every_expert"`` (the rank computes its routed
-    part over every expert rather than its own, so the model group's sum
-    counts that part again; every rank gathers the whole expert leaves,
-    so the ranks stay in step).  Returns the undo."""
+    ``attn_proj_skipping_leave``), ``"moe_leave"`` / ``"ssm_leave"`` (the
+    rank's MoE layers, or SSM mixers, keep their own partial sums: it
+    takes part in the all-reduce, its result dropped), ``"local_norm"``
+    (the rank's SSM gated norms take the mean square over its own
+    channels, the model group's sum taken and dropped) or
+    ``"every_expert"`` (the rank computes its routed part over every
+    expert rather than its own, so the model group's sum counts that part
+    again; every rank gathers the whole expert leaves, so the ranks stay
+    in step).  Returns the undo."""
     from repro_torch.distributed import procs
     from repro_torch.distributed.ctx import gather_model
     from repro_torch.models import moe as PM
+    from repro_torch.models import ssd as SSD
+    from repro_torch.models.common import rms_norm, silu
     from repro_torch.models.model import Model
 
     if "fault_rank" not in leg:
@@ -3703,16 +3734,22 @@ def plant_fault(leg):
         if me:
             Model._attn_proj = attn_proj_skipping_leave
         return lambda: setattr(Model, "_attn_proj", orig)
-    if fault == "moe_leave":
-        orig = PM.leave_model
+    if fault in ("moe_leave", "ssm_leave", "local_norm"):
+        mod = PM if fault == "moe_leave" else SSD
+        name = "_gated_norm" if fault == "local_norm" else "leave_model"
+        orig = getattr(mod, name)
 
         def kept(x):
             orig(x)
             return x
 
+        def own_channels(y, z, scale, cfg, split):
+            orig(y, z, scale, cfg, split)
+            return rms_norm(y * silu(z), scale, cfg.norm_eps)
+
         if me:
-            PM.leave_model = kept
-        return lambda: setattr(PM, "leave_model", orig)
+            setattr(mod, name, own_channels if fault == "local_norm" else kept)
+        return lambda: setattr(mod, name, orig)
     check(fault == "every_expert", f"unknown planted fault {fault!r}")
     orig = PM.routed_experts
 
@@ -3781,7 +3818,10 @@ def tp_serve_leg(leg, mesh, tally):
             m["prefill_s"] = time.perf_counter() - t0
             m["flash_launches_per_prefill"] = FA.STATS["flash_attention"]
             m["prefill_collectives"] = tally_summary(tally.take())
-            m["kv_heads"] = cache["k"].shape[3]
+            if "k" in cache:
+                m["kv_heads"] = cache["k"].shape[3]
+            if "h" in cache:  # the rank's SSM heads, and its x channels beside B|C
+                m["ssm_heads"], m["conv_channels"] = cache["h"].shape[2], cache["conv"].shape[-1]
             check(bool(torch.isfinite(lg.float()).all()) and tuple(lg.shape) == (B, 1, cfg.vocab_size),
                   f"tp {leg['name']}: prefill logits not finite of shape (B, 1, V)")
             if leg["keep"]:
@@ -3849,7 +3889,8 @@ def tp_one_process(device, cfg, routes, B, P, steps, cap):
     """The one-process run phases 17 and 18 hold the ranks to, on
     ``device``: ``cfg`` with the same seeded weights, prefill and
     ``steps`` greedy decode steps through each of ``routes`` ({name:
-    attn_impl}; "k", the kernel route, sets the tokens).  Returns (logits
+    attn_impl, or (attn_impl, overrides of ``cfg``)}; "k", the kernel
+    route, sets the tokens).  Returns (logits
     by route, and under "routes" the kernel route's prefill routings of a
     MoE model and each decode step's after them, ``RouteLog``; the tokens
     fed; the kernel route's prefill s after a warm-up one)."""
@@ -3857,8 +3898,11 @@ def tp_one_process(device, cfg, routes, B, P, steps, cap):
     from repro_torch.models import Runtime, build_model
     from repro_torch.train import make_decode_step, make_prefill
 
-    models = {r: build_model(cfg, Runtime(attn_impl=impl, remat="none"))
-              for r, impl in routes.items()}
+    def built(route):
+        impl, kw = (route, {}) if isinstance(route, str) else route
+        return build_model(cfg.replace(**kw), Runtime(attn_impl=impl, remat="none"))
+
+    models = {r: built(route) for r, route in routes.items()}
     params = models["k"].init(torch.Generator(device=device).manual_seed(SEED))
     batch = serve_batch(cfg, device, B, P)
     out, caches, tokens = {r: [] for r in routes}, {}, []
@@ -3892,16 +3936,18 @@ def tp_one_process(device, cfg, routes, B, P, steps, cap):
     return out, tokens, prefill_s
 
 
-def tp_bounds(one, dtype):
+def tp_bounds(one, dtype, pairs=(("d", "p"),)):
     """The end-to-end bounds on the prefill and the decode logits: phase
     8's, the larger of the type's tolerance and SERVE_SPREAD_FACTOR times
-    the one-process plain routes' own spread (dense vs blocked) where
-    they ran; and that spread."""
+    the one-process routes' own spread where they ran, the largest of
+    ``pairs`` (by default dense vs blocked attention; "k" vs "c", the
+    chunked SSD at two chunk lengths, phase 19's); and that spread."""
     tol = SERVE_TOL[dtype]
-    if "d" not in one:
+    pairs = [(a, b) for a, b in pairs if a in one and b in one]
+    if not pairs:
         return [tol, tol], None
-    spread = [rel_err(one["d"][0], one["p"][0]),
-              max(rel_err(a, b) for a, b in zip(one["d"][1:], one["p"][1:]))]
+    spread = [max(rel_err(one[a][0], one[b][0]) for a, b in pairs),
+              max(rel_err(x, y) for a, b in pairs for x, y in zip(one[a][1:], one[b][1:]))]
     return [max(tol, SERVE_SPREAD_FACTOR * e) for e in spread], spread
 
 
@@ -3945,9 +3991,10 @@ def tp_run(device, workdir, tag, m, backend, rank_units, legs):
             lm = r[leg["name"]][0]
             print(f"    rank {r['rank']} on {r['device']} {leg['name']}: "
                   + " ".join(f"{k}={v!r}" for k, v in lm.items()))
-            check(lm["flash_launches_per_prefill"] == lm["layers"] or device.type != "cuda",
+            want = lm["layers"] if leg["cfg"].uses_attention else 0
+            check(lm["flash_launches_per_prefill"] == want or device.type != "cuda",
                   f"{tag} {leg['name']}: rank {r['rank']} launched flash_attention "
-                  f"{lm['flash_launches_per_prefill']} times a prefill (want {lm['layers']})")
+                  f"{lm['flash_launches_per_prefill']} times a prefill (want {want})")
     return res
 
 
@@ -4193,6 +4240,158 @@ def phase_serve_tp_moe(device, workdir, cards=None):
             print(f"  flash_attention {key} at {case} bfloat16: " + " ".join(
                 f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
     return out, launches, times
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: tensor-parallel SSM and hybrid serving over ranks, serve_tp_ssm_cards
+# ---------------------------------------------------------------------------
+
+
+def tag_of(arch, m):
+    return f"serve_tp_{arch.replace('-', '_').replace('.', '_')}_mp{m}"
+
+
+def ssm_serve_over(device, workdir, arch, m, n, one, faults=()):
+    """``arch`` served over ``m`` ranks (``tp_ranks``: gloo ranks of the
+    one card, or a card each over NCCL): bf16 and float32 legs held to the
+    one-process kernel route ``one`` ({dtype: (logits, tokens, bound,
+    config)}), and each of ``faults`` on rank 1 (a float32 prefill) failing
+    the prefill check.  Returns the metrics and the ranks' bf16
+    ``flash_attention`` launches a prefill."""
+    shape = dict(B=SERVE_B, P=SERVE_P, cap=SERVE_CAP)
+    backend, rank_units = tp_ranks(device, m, n)
+    base = dict(shape, keep=True, warm=backend == "nccl")
+    f32 = one["float32"][3]
+    legs = [dict(base, name=dt, cfg=one[dt][3], tokens=one[dt][1]) for dt in one]
+    legs += [dict(base, name=f"fault_{f}", cfg=f32, tokens=[], fault_rank=1, fault=f,
+                  warm=False) for f in faults]
+    tag = tag_of(arch, m)
+    res = tp_run(device, workdir, tag, m, backend, rank_units, legs)
+    out = {"backend": backend}
+    for dt, (lg, _, lim, _) in one.items():
+        c = out[dt] = tp_compare(dt, res, {"k": lg}, lim)
+        check(c["prefill_rel_err"] < lim[0] and c["decode_max_rel_err"] < lim[1],
+              f"{tag} {dt}: rel errs (prefill, decode) {c['prefill_rel_err']}, "
+              f"{c['decode_max_rel_err']} against one process, bounds {lim}")
+    for f in faults:
+        e = out[f"fault_{f}"] = tp_compare(f"fault_{f}", res, {"k": one["float32"][0]},
+                                           one["float32"][2])["prefill_rel_err"]
+        check(e >= max(one["float32"][2][0], one["bfloat16"][2][0]),
+              f"{tag}: the planted fault {f} passed the prefill check ({e})")
+    out["ranks"] = {r["rank"]: {dt: r[dt][0] for dt in one} for r in res}
+    print(f"  {tag}: " + " ".join(f"{k}={v!r}" for k, v in out.items() if k != "ranks"))
+    return out, sum(r["bfloat16"][0]["flash_launches_per_prefill"] for r in res)
+
+
+def ssm_train_cards(device, workdir, arch):
+    """``python -m repro_torch.launch.train --arch ARCH --smoke --model-par
+    2`` on the node's cards (a rank a card over NCCL), SSM_TRAIN_STEPS
+    steps with 2 cards lost at SSM_FAIL_AT: it must reach the last step
+    after one recovery.  Returns its summary line and seconds."""
+    import os
+
+    ckpt = workdir / f"train_{arch}"
+    if ckpt.exists():
+        import shutil
+
+        shutil.rmtree(ckpt)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
+           "--model-par", "2", "--steps", str(SSM_TRAIN_STEPS), "--fail-at", str(SSM_FAIL_AT),
+           "--fail-devices", "2", "--ckpt-every", "8", "--ckpt-dir", str(ckpt)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=TP_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    done = [ln for ln in p.stdout.splitlines() if ln.startswith("done:")]
+    check(p.returncode == 0 and done, f"launch.train {arch} --model-par 2 exited "
+          f"{p.returncode}:\n{p.stderr[-3000:]}")
+    check(f"step={SSM_TRAIN_STEPS} " in done[-1] and "recoveries=1 " in done[-1],
+          f"launch.train {arch} --model-par 2: {done[-1]}")
+    print(f"  launch.train {arch} --smoke --model-par 2 --fail-at {SSM_FAIL_AT} "
+          f"--fail-devices 2: {done[-1]} in {secs:.1f} s")
+    return done[-1], secs
+
+
+def phase_serve_tp_ssm(device, workdir, cards=None):
+    """Phase 19, cell ``serve_tp_ssm_cards``: tensor-parallel serving of
+    the SSM family (mamba2-2.7b) and the hybrid family (hymba-1.5b) over
+    ranks whose ``model`` axis spans them (``make_prefill`` /
+    ``make_decode_step`` over the mesh; each rank holding its share of the
+    reference's Megatron specs: its SSD heads and ``d_inner`` channels
+    where they divide the axis, B and C computed whole on every rank, the
+    gated norm's mean square summed over the model group, one all-reduce a
+    mixer; hymba's FFN columns; its 25 attention heads and 32,001-token
+    vocabulary whole on every rank).
+
+    Each arch at full width and depth, first in one process on
+    ``device`` (bf16 through the kernel route at the config's SSD chunk and
+    at half of it, hymba also through the dense and blocked attention
+    routes; float32 at SSM_F32_LAYERS), then over SSM_TP_M ranks (2 gloo
+    ranks of the one card, or 2 cards over NCCL): bf16 with phase 8's
+    batch, cache and 32 decode steps fed the one-process greedy tokens,
+    held to the one-process kernel route at the larger of 2e-2 and
+    SERVE_SPREAD_FACTOR times the one-process routes' spread (chunk vs
+    half chunk; hymba also dense vs blocked), float32 against 1e-4; on
+    mamba2 each planted fault of SSM_FAULTS on rank 1 must fail the
+    prefill check.  With 4 cards both over 4 cards (mamba2 20 heads a
+    rank, hymba's SSM whole), and ``launch.train --smoke --model-par 2``
+    of each through a recovery (``ssm_train_cards``).  Each rank's
+    ``flash_attention`` launches a prefill, SSM heads and conv channels,
+    peak memory, bytes held and collectives (count, type, µs) are printed;
+    ``flash_attention`` is timed at hymba's shape on every rank
+    (``SSM_TP_FLASH``) and ``ssd_scan`` at mamba2's heads a rank
+    (``SSM_RANK_SSD``) beside their plain versions.  Returns the metrics,
+    the launches over the ranks of each per-rank shape's bf16 prefill, and
+    the flash and ssd timings."""
+    import torch
+
+    cuda = device.type == "cuda"
+    n = cards or (min(torch.cuda.device_count(), 4) if cuda else 1)
+    workdir.mkdir(parents=True, exist_ok=True)
+    out = {"cards": n}
+    shape = dict(B=SERVE_B, P=SERVE_P, cap=SERVE_CAP)
+    launches = {}
+    for arch in SSM_TP_ARCHS:
+        cfg_bf = tp_cfg(arch, "bfloat16")
+        cfg_f32 = tp_cfg(arch, "float32", SSM_F32_LAYERS)
+        routes = {"k": "pallas", "c": ("pallas", {"ssm_chunk": cfg_bf.ssm_chunk // 2})}
+        pairs = [("k", "c")]
+        if cfg_bf.uses_attention:
+            routes.update(d="dense", p="blocked")
+            pairs.append(("d", "p"))
+        one_bf, tok_bf, prefill_s = tp_one_process(device, cfg_bf, routes, steps=SERVE_STEPS,
+                                                   **shape)
+        one_f32, tok_f32, _ = tp_one_process(device, cfg_f32, {"k": "pallas"},
+                                             steps=SERVE_STEPS, **shape)
+        lim_bf, spread = tp_bounds(one_bf, "bfloat16", pairs)
+        lim_f32, _ = tp_bounds(one_f32, "float32")
+        a = out[arch] = {"one_process_prefill_s": prefill_s, "one_process_spread": spread,
+                         "chunk_vs_half_chunk": tp_bounds(one_bf, "bfloat16", [("k", "c")])[1]}
+        one = {"bfloat16": (one_bf["k"], tok_bf, lim_bf, cfg_bf),
+               "float32": (one_f32["k"], tok_f32, lim_f32, cfg_f32)}
+        del one_bf, one_f32
+        faults = SSM_FAULTS if not cfg_bf.uses_attention else ()
+        for m in (SSM_TP_M, 4) if n >= 4 else (SSM_TP_M,):
+            a[f"mp{m}"], flash = ssm_serve_over(device, workdir, arch, m, n, one, faults)
+            faults = ()
+            if cfg_bf.uses_attention:
+                launches[tag_of(arch, m)[len("serve_tp_"):]] = flash
+        if n >= 4:
+            a["train_cards"] = ssm_train_cards(device, workdir, arch)
+    flash_t, ssd_t = {}, {}
+    if cuda:
+        for key, case in SSM_TP_FLASH.items():
+            if key in launches:
+                flash_t[key] = t = time_flash(device, "bfloat16", case=case)
+                print(f"  flash_attention {key} at {case} bfloat16: " + " ".join(
+                    f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
+        for key, case in SSM_RANK_SSD.items():
+            for dt in ("bfloat16", "float32"):
+                ssd_t[key, dt] = t = time_ssd(device, dt, case=case)
+                print(f"  ssd_scan {key} at {case} {dt}: " + " ".join(
+                    f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
+    return out, launches, flash_t, ssd_t
 
 
 def main() -> int:
@@ -4443,6 +4642,22 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
     lap("18")
+    print("== phase 19: tensor-parallel SSM and hybrid serving over ranks, serve_tp_ssm_cards")
+    torch.cuda.empty_cache()
+    _, ssm_tp_launches, ssm_tp_flash, _ = phase_serve_tp_ssm(device, ROOT / "build" / "serve_tp")
+    print(f"  tensor-parallel SSM and hybrid serving launches (over the ranks): "
+          f"flash_attention={ssm_tp_launches}")
+    for shape, n in ssm_tp_launches.items():
+        check(n > 0, f"flash_attention ({shape}) was never launched on the hymba ranks")
+        t = ssm_tp_flash[shape]
+        kernels.append(dict(
+            name=f"flash_attention_{shape}", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:127", launches=n,
+            max_abs_err=model_err["flash_by_case"][SSM_TP_FLASH[shape], "bfloat16"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    lap("19")
     print(f"  phase_seconds={laps} total_s={time.perf_counter() - t_start:.1f}")
     print(smi())
     print(json.dumps({"kernels": kernels}))

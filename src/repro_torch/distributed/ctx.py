@@ -19,7 +19,10 @@ Megatron pair: :func:`enter_model` (identity forward, all-reduce of the
 gradient backward) where a replicated tensor goes into a region computed
 on the rank's share of a split leaf, and :func:`leave_model` (all-reduce
 forward, identity backward) where the region's partial sums come out.
-Without a model group both return their input, so the model code stays
+A statistic that a region reduces over a split dimension and reads
+again inside it (the SSM's gated norm, over the whole ``d_inner``) goes
+through :func:`model_sum`, an all-reduce both ways.  Without a model
+group all three return their input, so the model code stays
 mesh-agnostic, as the reference's does.
 """
 from __future__ import annotations
@@ -103,6 +106,17 @@ class _Leave(torch.autograd.Function):
         return g, None
 
 
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
 def enter_model(x: torch.Tensor) -> torch.Tensor:
     """``x`` entering a model-parallel region: itself, its gradient
     summed over the model group (each rank's region gives a partial
@@ -121,6 +135,20 @@ def leave_model(x: torch.Tensor) -> torch.Tensor:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
         return _Leave.apply(x, group)
+    return all_reduce(x, group)
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a rank's partial sum that the region reads again (each rank
+    with its own share of the terms), summed over the model group; its
+    gradient summed too, since each rank's comes only through the terms
+    it reads the sum with.  ``leave_model`` would pass the forward and
+    give each rank a partial gradient."""
+    group = model_group()
+    if group is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Sum.apply(x, group)
     return all_reduce(x, group)
 
 
@@ -159,6 +187,19 @@ def data_mean(x: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad:
         return _DataMean.apply(x, mesh)
     return mesh.mean(x)
+
+
+def split_share(n_local: int, n_whole: int) -> bool:
+    """Whether a leaf of ``n_local`` columns is this rank's share of
+    ``n_whole`` (the specs split it): a model-parallel region, which
+    needs the model group of ``current_mesh()``."""
+    if n_local == n_whole:
+        return False
+    if model_group() is None:
+        raise RuntimeError(
+            f"a leaf of {n_local} of {n_whole} columns outside a mesh whose model axis "
+            "spans ranks: run it under distributed.ctx.mesh_context")
+    return True
 
 
 def model_rank() -> int:

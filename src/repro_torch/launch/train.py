@@ -8,8 +8,7 @@ Runs on the card unless ``--device cpu`` is given (the kernels' plain
 versions on the CPU); without a card and without ``--device cpu`` it
 exits 2.  On a node with N cards it trains over them, one process per
 card over NCCL (``train/loop.py``): data-parallel, and tensor-parallel
-over ``--model-par`` cards in each row (the dense, MoE, vision and
-encoder-decoder families; SSM and hybrid ones raise).
+over ``--model-par`` cards in each row (every family).
 ``REPRO_HOST_DEVICES=N`` presents N logical units of one device instead
 (``distributed/meshes.py``).  ``--smoke`` swaps in the reduced config.
 ``--fail-at`` injects a device failure to exercise checkpoint/restart and

@@ -8,8 +8,10 @@ dispatch, or its expert-parallel ``moe_apply_ep`` under a
 leaves are the rank's share of the specs takes ``moe_apply_tp``: every
 token routed on every rank, the rank's experts (or their hidden columns)
 and its columns of the shared experts and the dense FFN computed, and one
-all-reduce a layer; ``moe_apply_ep`` computes the rank's own column.  The
-SSM and hybrid families raise there (``check_tensor_parallel``).  One stacked
+all-reduce a layer; ``moe_apply_ep`` computes the rank's own column.  An
+SSM mixer whose leaves are a share takes ``models/ssd.py`` on the rank's
+heads and channels; hymba's attention and SSM partial sums, where both
+are split, leave the region together, in one all-reduce.  One stacked
 parameter tree with a leading ``L`` axis, as in the reference, so the
 reference's parameters carry over leaf for leaf
 (``core/carry.params_from_numpy``).  Where the reference scans over
@@ -63,8 +65,8 @@ from repro_torch.distributed.ctx import (
     enter_model,
     gather_model,
     leave_model,
-    model_group,
     model_rank,
+    split_share,
 )
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
@@ -282,20 +284,8 @@ class Model:
     # ------------------------------------------------------------------
     # Tensor parallelism: a sublayer whose leaves the specs split holds
     # the rank's heads (or FFN columns); the head counts come from its
-    # tensors, not from ``cfg``.
+    # tensors, not from ``cfg`` (``distributed.ctx.split_share``).
     # ------------------------------------------------------------------
-    def _split(self, n_local: int, n_whole: int) -> bool:
-        """Whether a leaf of ``n_local`` columns is the rank's share of
-        ``n_whole``: a model-parallel region, which needs the model group
-        of ``current_mesh()``."""
-        if n_local == n_whole:
-            return False
-        if model_group() is None:
-            raise RuntimeError(
-                f"a leaf of {n_local} of {n_whole} columns outside a mesh whose model axis "
-                "spans ranks: run it under distributed.ctx.mesh_context")
-        return True
-
     def _kv_span(self, n_q: int) -> Tuple[int, int]:
         """(first, count) of the global KV heads that the rank's ``n_q``
         query heads read where the specs split the query heads but leave
@@ -312,7 +302,7 @@ class Model:
     def _attn_split(self, p: dict) -> bool:
         """Whether the specs split an attention sublayer ``p`` over the
         model group (its query heads)."""
-        return self._split(p["wq"].shape[-1], self.cfg.q_dim)
+        return split_share(p["wq"].shape[-1], self.cfg.q_dim)
 
     def _kv_weights(self, p: dict):
         """``wk``/``wv`` for the rank's query heads: as they are where the
@@ -329,11 +319,16 @@ class Model:
         return (enter_model(wk)[:, lo * hd:(lo + n) * hd],
                 enter_model(wv)[:, lo * hd:(lo + n) * hd])
 
-    def _attn_proj(self, o, p: dict):
+    def _attn_out(self, o, p: dict):
         """The attention output ``o`` (B, S, H_rank, hd) through the
-        sublayer's ``wo``; where the specs split it, the rank's rows of
-        ``wo``, and the partial sums leave the region."""
-        out = constrain(o.reshape(*o.shape[:2], -1), "attn_out") @ p["wo"]
+        sublayer's ``wo``: where the specs split it, the rank's rows of
+        ``wo`` and its partial sum, still in the region."""
+        return constrain(o.reshape(*o.shape[:2], -1), "attn_out") @ p["wo"]
+
+    def _attn_proj(self, o, p: dict):
+        """``_attn_out``, the partial sums leaving the region where the
+        specs split the sublayer."""
+        out = self._attn_out(o, p)
         return leave_model(out) if self._attn_split(p) else out
 
     def _attn_in(self, p: dict, h):
@@ -377,14 +372,16 @@ class Model:
             kv_chunk=cfg.attn_kv_chunk,
         )
 
-    def _attn_sublayer(self, attn_bp, h, *, is_global: bool, positions):
+    def _attn_sublayer(self, attn_bp, h, *, is_global: bool, positions, joint=False):
+        """Self-attention's output; ``joint``: the rank's partial sum, left
+        in the region for the caller to join with the SSM's."""
         q, k, v = self._qkv(attn_bp, h, positions)
         o = self._self_attention(q, k, v, is_global=is_global)
-        return self._attn_proj(o, attn_bp)
+        return self._attn_out(o, attn_bp) if joint else self._attn_proj(o, attn_bp)
 
     def _mlp(self, p, x):
         """The dense FFN, a model-parallel region where the specs split it."""
-        return swiglu_apply(p, x, self._split(p["gate"].shape[-1], self.cfg.d_ff))
+        return swiglu_apply(p, x, split_share(p["gate"].shape[-1], self.cfg.d_ff))
 
     def _moe_split(self, p: dict) -> bool:
         """Whether the specs split a MoE sublayer ``p`` over the model
@@ -393,11 +390,11 @@ class Model:
         cfg = self.cfg
         e_ff = cfg.moe_d_ff or cfg.d_ff
         g = p["experts"]["gate"]
-        split = self._split(g.shape[0] * g.shape[-1], cfg.num_experts * e_ff)
+        split = split_share(g.shape[0] * g.shape[-1], cfg.num_experts * e_ff)
         if "shared" in p:
-            split |= self._split(p["shared"]["gate"].shape[-1], cfg.num_shared_experts * e_ff)
+            split |= split_share(p["shared"]["gate"].shape[-1], cfg.num_shared_experts * e_ff)
         if "dense_ffn" in p:
-            split |= self._split(p["dense_ffn"]["gate"].shape[-1], cfg.d_ff)
+            split |= split_share(p["dense_ffn"]["gate"].shape[-1], cfg.d_ff)
         return split
 
     def _mlp_sublayer(self, bp, h):
@@ -422,6 +419,13 @@ class Model:
     def _ssm_prenorm(self, bp, h):
         ln = bp["ssm_ln"] if "ssm_ln" in bp else bp["attn"]["ln"]
         return rms_norm(h, ln, self.cfg.norm_eps)
+
+    def _joint(self, bp) -> bool:
+        """Whether a layer's attention and SSM sublayers are both split
+        (hymba's parallel heads): their partial sums then leave the region
+        together, one all-reduce for the mixer."""
+        return (self.cfg.parallel_ssm and self._attn_split(bp["attn"])
+                and ssd_mod.ssd_split(bp["ssm"], self.cfg))
 
     def _cross_q(self, cp, h):
         """Cross-attention's queries (the rank's heads)."""
@@ -451,9 +455,11 @@ class Model:
         if cfg.family == "ssm":
             return h + ssd_mod.ssd_apply(bp["ssm"], self._ssm_prenorm(bp, h), cfg)
         if cfg.parallel_ssm:
-            a = self._attn_sublayer(bp["attn"], h, is_global=is_global, positions=positions)
-            s = ssd_mod.ssd_apply(bp["ssm"], self._ssm_prenorm(bp, h), cfg)
-            h = h + a + s
+            joint = self._joint(bp)
+            a = self._attn_sublayer(bp["attn"], h, is_global=is_global, positions=positions,
+                                    joint=joint)
+            s = ssd_mod.ssd_apply(bp["ssm"], self._ssm_prenorm(bp, h), cfg, leave=not joint)
+            h = h + leave_model(a + s) if joint else h + a + s
         else:
             h = h + self._attn_sublayer(bp["attn"], h, is_global=is_global,
                                         positions=positions)
@@ -468,18 +474,20 @@ class Model:
         B, S, _ = h.shape
         lc: Dict[str, Any] = {}
         parts = []
+        joint = self._joint(bp)
+        attn_out = self._attn_out if joint else self._attn_proj
         if cfg.uses_attention:
             q, k, v = self._qkv(bp["attn"], h, positions)
             o = self._self_attention(q, k, v, is_global=is_global)
-            parts.append(self._attn_proj(o, bp["attn"]))
+            parts.append(attn_out(o, bp["attn"]))
             lc["k"], lc["v"] = k, v
         if cfg.uses_ssm:
             x = self._ssm_prenorm(bp, h)
-            out, state, conv_tail = self._ssd_with_state(bp["ssm"], x)
+            out, state, conv_tail = self._ssd_with_state(bp["ssm"], x, leave=not joint)
             parts.append(out)
             lc["h"] = state
             lc["conv"] = conv_tail
-        h = h + sum(parts)
+        h = h + (leave_model(sum(parts)) if joint else sum(parts))
         if "cross" in bp:
             lc["cross_k"], lc["cross_v"] = self._cross_kv(bp["cross"], self._enc_out)
             h = h + self._cross_sublayer(bp["cross"], h, self._enc_out)
@@ -487,9 +495,9 @@ class Model:
             h = h + self._mlp_sublayer(bp, h)
         return h, lc
 
-    def _ssd_with_state(self, sp, x):
+    def _ssd_with_state(self, sp, x, leave=True):
         """SSD over a full sequence, returning output + decode-ready state."""
-        return ssd_mod.ssd_forward(sp, x, self.cfg)
+        return ssd_mod.ssd_forward(sp, x, self.cfg, leave=leave)
 
     def _striped_attention(self, q, k6, v6, pos: int, *, window: int, is_global: bool):
         """Attention over a striped (B, nblk, w, KVH, hd) cache.
@@ -536,6 +544,8 @@ class Model:
         positions = torch.full((h.shape[0], 1), pos, device=h.device)
         window = 0 if is_global else cfg.sliding_window
         parts = []
+        joint = self._joint(bp)
+        attn_out = self._attn_out if joint else self._attn_proj
         if cfg.uses_attention and lc.get("k") is not None and lc["k"].dim() == 5:
             # striped cache layout (B, nblk, w, KVH, hd)
             q, k_new, v_new = self._qkv(bp["attn"], h, positions)
@@ -546,7 +556,7 @@ class Model:
             v_cache[:, blk, off] = v_new[:, 0]
             o = self._striped_attention(q, k_cache, v_cache, pos, window=window,
                                         is_global=is_global)
-            parts.append(self._attn_proj(o, bp["attn"]))
+            parts.append(attn_out(o, bp["attn"]))
             nc["k"], nc["v"] = k_cache, v_cache
         elif cfg.uses_attention:
             q, k_new, v_new = self._qkv(bp["attn"], h, positions)
@@ -574,15 +584,15 @@ class Model:
                 softcap=cfg.attn_logit_softcap,
                 impl="dense",
             )
-            parts.append(self._attn_proj(o, bp["attn"]))
+            parts.append(attn_out(o, bp["attn"]))
             nc["k"], nc["v"] = k_cache, v_cache
         if cfg.uses_ssm:
             x = self._ssm_prenorm(bp, h)
             s_out, s_state = ssd_mod.ssd_decode_step(
-                bp["ssm"], {"conv": lc["conv"], "h": lc["h"]}, x, cfg)
+                bp["ssm"], {"conv": lc["conv"], "h": lc["h"]}, x, cfg, leave=not joint)
             parts.append(s_out)
             nc["conv"], nc["h"] = s_state["conv"], s_state["h"]
-        h = h + sum(parts)
+        h = h + (leave_model(sum(parts)) if joint else sum(parts))
         if "cross" in bp:
             h = h + self._cross_decode(bp["cross"], h, lc)
         if cfg.uses_moe or cfg.d_ff:
@@ -631,7 +641,7 @@ class Model:
     def _lookup(self, table, tokens):
         """Embedding rows: a masked lookup of the rank's rows, summed over
         the model group, where the specs split the vocabulary."""
-        if self._split(table.shape[0], self.cfg.vocab_size):
+        if split_share(table.shape[0], self.cfg.vocab_size):
             return vocab_parallel_embed(table, tokens, model_rank() * table.shape[0])
         return table[tokens.long()]
 
@@ -655,7 +665,7 @@ class Model:
         cfg = self.cfg
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        if self._split(w.shape[-1], cfg.vocab_size):
+        if split_share(w.shape[-1], cfg.vocab_size):
             h = enter_model(h)
         return h @ w
 
@@ -702,16 +712,9 @@ class Model:
     # ==================================================================
     # Public API
     # ==================================================================
-    def _check_parallel(self) -> None:
-        """Raise where the ``model`` axis spans ranks and this family's
-        forward has no tensor-parallel layers yet."""
-        if model_group() is not None:
-            check_tensor_parallel(self.cfg)
-
     def _hidden(self, params, batch):
         """The last layer's output of a teacher-forced pass."""
         cfg = self.cfg
-        self._check_parallel()
         self._enc_out = (
             self._encode(params, batch["src_embeds"]) if cfg.is_encoder_decoder else None
         )
@@ -790,14 +793,25 @@ class Model:
             return cfg.num_kv_heads
         return max(cfg.num_heads // m // (cfg.num_heads // cfg.num_kv_heads), 1)
 
+    def _ssm_share(self, mesh) -> int:
+        """The ways a rank's SSM state is split: the ``model`` axis of
+        ``mesh`` where it spans ranks and the specs split the mixer (its
+        heads and ``d_inner`` divide the axis), else 1."""
+        cfg = self.cfg
+        m = 1 if mesh is None or mesh.model_group is None else mesh.n_model
+        return m if cfg.ssm_heads % m == 0 and cfg.d_inner % m == 0 else 1
+
     def init_cache(self, batch: int, cache_len: int, *, device="cuda", mesh=None) -> dict:
         """A zeroed decode cache.  ``mesh`` (default ``current_mesh()``):
         over ranks with the ``model`` axis across them, each rank's cache
-        holds its own KV heads."""
+        holds its own KV heads, and its own SSM heads of ``h`` and
+        channels of the pre-conv ``x`` in ``conv`` (beside the whole
+        ``B|C``)."""
         cfg, dt = self.cfg, self.dtype
         dev = resolve_device(device)
         L = cfg.num_layers
-        kvh = self._cache_heads(current_mesh() if mesh is None else mesh)
+        mesh = current_mesh() if mesh is None else mesh
+        kvh = self._cache_heads(mesh)
 
         def zeros(shape, dtype=dt):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -811,10 +825,11 @@ class Model:
             kv = (L, batch, cache_len, kvh, cfg.resolved_head_dim)
             cache["k"], cache["v"] = zeros(kv), zeros(kv)
         if cfg.uses_ssm:
-            conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+            m = self._ssm_share(mesh)
+            conv_ch = cfg.d_inner // m + 2 * cfg.ssm_state
             cache["conv"] = zeros((L, batch, cfg.ssm_conv - 1, conv_ch))
             cache["h"] = zeros(
-                (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), torch.float32)
+                (L, batch, cfg.ssm_heads // m, cfg.ssm_head_dim, cfg.ssm_state), torch.float32)
         if cfg.is_encoder_decoder:
             xs = (L, batch, cfg.max_source_positions, kvh, cfg.resolved_head_dim)
             cache["cross_k"], cache["cross_v"] = zeros(xs), zeros(xs)
@@ -823,7 +838,6 @@ class Model:
     def prefill(self, params, batch):
         """Run the full prompt; return (last-position logits, filled cache)."""
         cfg = self.cfg
-        self._check_parallel()
         self._enc_out = (
             self._encode(params, batch["src_embeds"]) if cfg.is_encoder_decoder else None
         )
@@ -844,7 +858,6 @@ class Model:
         """token (B, 1) int; pos the write index (an int).  Returns
         (logits (B,1,V), updated cache)."""
         cfg = self.cfg
-        self._check_parallel()
         pos = int(pos)
         h = self._lookup(params["embed"], token)
         if cfg.rope_theta <= 0:
@@ -856,19 +869,6 @@ class Model:
         h, new_cache = self._traverse(params["blocks"], h, layer_fn, extra_xs=cache)
         logits = self._logits(params, h)
         return logits, new_cache
-
-
-def check_tensor_parallel(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family whose layers have no
-    tensor-parallel forward yet (SSM, hybrid): the specs would split its
-    leaves over a ``model`` axis across ranks while its forward computes
-    on whole ones."""
-    if cfg.uses_ssm:
-        kind = "hybrid" if cfg.uses_attention else "SSM"
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis across ranks for the {kind} family is not implemented "
-            "(the SSM and hybrid layers under tensor parallelism are the next slice); the "
-            "dense, MoE, vision and encoder-decoder families run it")
 
 
 def build_model(cfg: ModelConfig, rt: Runtime = Runtime()) -> Model:

@@ -18,6 +18,20 @@ in, as in the reference: the model's layers take the chunked form.
 
 Decode is the O(1) recurrent step:  h ← e^{AΔ}·h + Δ·B⊗x,  y = C·h + D·x,
 with a small causal-conv ring buffer.
+
+Tensor parallelism (the ``model`` axis across ranks, the reference's
+Megatron specs): a mixer whose ``wx`` holds fewer than ``d_inner``
+columns is a rank's share (:func:`ssd_split`) -- its d_inner/m channels
+of ``wz``/``wx``/``conv_x``/``conv_bx``/``norm``, its nh/m heads of
+``wdt``/``A_log``/``D``/``dt_bias`` and its rows of ``out_proj``.  ``B``
+and ``C`` (``wbc``, ``conv_bc``, ``conv_bbc``, whole) are computed whole
+on every rank and enter the region; the scan runs on the rank's heads;
+the gated norm takes its mean square over the whole ``d_inner``, the
+ranks' sums of squares summed by ``model_sum``; the output leaves the
+region after ``out_proj`` (or, with ``leave=False``, is returned as the
+rank's partial sum for the caller to join with another).  A decode state
+holds the rank's heads of ``h`` and, in ``conv``, its channels of the
+pre-conv ``x`` beside the whole ``B|C``.
 """
 from __future__ import annotations
 
@@ -27,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.ctx import enter_model, leave_model, model_sum, split_share
 from repro_torch.models.common import dense_init, normal, rms_norm, silu
 
 
@@ -130,26 +145,59 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk: int,
     return y, h  # final: (B, nh, hp, N)
 
 
+def ssd_split(p: dict, cfg) -> bool:
+    """Whether the mixer ``p`` is a rank's share of the specs (``wx``
+    narrower than ``d_inner``): a model-parallel region, which needs the
+    model group of ``distributed.ctx.current_mesh()``."""
+    return split_share(p["wx"].shape[-1], cfg.d_inner)
+
+
+def _gated_norm(y, z, scale, cfg, split: bool):
+    """``rms_norm(y * silu(z))`` over the whole ``d_inner``: where the
+    mixer is split, the mean square is the rank's float32 sum of squares
+    summed over the model group (``model_sum``), over ``cfg.d_inner``."""
+    g = y * silu(z)
+    if not split:
+        return rms_norm(g, scale, cfg.norm_eps)
+    gf = g.float()
+    ss = model_sum(torch.sum(torch.square(gf), dim=-1, keepdim=True))
+    gf = gf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    return (gf * (1.0 + scale.float())).to(g.dtype)
+
+
+def _inputs(x: torch.Tensor, bc: torch.Tensor, split: bool):
+    """``x`` and the whole ``B|C`` (``bc``) as the mixer's region takes
+    them: entering it where the mixer is split, so the gradients of the
+    leaves computed whole on every rank come out summed."""
+    return (enter_model(x), enter_model(bc)) if split else (x, bc)
+
+
 def ssd_forward(p: dict, x: torch.Tensor, cfg, *, h0: Optional[torch.Tensor] = None,
-                use_pallas: bool = False):
+                use_pallas: bool = False, leave: bool = True):
     """Full Mamba2 block over (B, S, d).
 
     Returns (out (B,S,d), final_state (B,nh,hp,N), conv_tail (B,w-1,di+2N)).
     ``use_pallas`` runs the scan through the kernel, which takes no
     initial state: passing ``h0`` with it raises (the reference drops
-    ``h0`` silently there).
+    ``h0`` silently there).  On a rank's share (:func:`ssd_split`) nh and
+    di are the rank's, and ``out`` has left the region unless ``leave``
+    is false (then it is the rank's partial sum).
     """
     if use_pallas and h0 is not None:
         raise ValueError("ssd_forward(use_pallas=True) takes no h0: the "
                          "ssd_scan kernel starts from a zero state")
+    split = ssd_split(p, cfg)
     B, S, d = x.shape
-    di, N, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z = x @ p["wz"]
-    xr_pre = x @ p["wx"]
+    N, hp = cfg.ssm_state, cfg.ssm_head_dim
+    di = p["wx"].shape[-1]
+    nh = di // hp
     bc_pre = x @ p["wbc"]
-    dt = x @ p["wdt"]
-    xr = _causal_conv(xr_pre, p["conv_x"], p["conv_bx"])
     bc = _causal_conv(bc_pre, p["conv_bc"], p["conv_bbc"])
+    xin, bc = _inputs(x, bc, split)
+    z = xin @ p["wz"]
+    xr_pre = xin @ p["wx"]
+    dt = xin @ p["wdt"]
+    xr = _causal_conv(xr_pre, p["conv_x"], p["conv_bx"])
     xs = xr.reshape(B, S, nh, hp)
     Bm = bc[..., :N]
     Cm = bc[..., N:]
@@ -165,16 +213,17 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg, *, h0: Optional[torch.Tensor] = N
         y, state = ssd_chunked(xs, dtp, A, Bm, Cm, chunk=cfg.ssm_chunk, h0=h0)
     y = y + xs.float() * p["D"][None, None, :, None]
     y = y.reshape(B, S, di).to(x.dtype)
-    y = rms_norm(y * silu(z), p["norm"], cfg.norm_eps)
+    y = _gated_norm(y, z, p["norm"], cfg, split)
     w = cfg.ssm_conv
     # conv tails store the *pre-conv* inputs needed to resume decoding
     lo = max(S - (w - 1), 0)
     conv_tail = torch.cat([xr_pre[:, lo:, :], bc_pre[:, lo:, :]], dim=-1)
-    return y @ p["out_proj"], state, conv_tail
+    out = y @ p["out_proj"]
+    return (leave_model(out) if split and leave else out), state, conv_tail
 
 
-def ssd_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    return ssd_forward(p, x, cfg)[0]
+def ssd_apply(p: dict, x: torch.Tensor, cfg, *, leave: bool = True) -> torch.Tensor:
+    return ssd_forward(p, x, cfg, leave=leave)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -182,20 +231,26 @@ def ssd_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def ssd_decode_step(p: dict, state: dict, x: torch.Tensor, cfg):
+def ssd_decode_step(p: dict, state: dict, x: torch.Tensor, cfg, *, leave: bool = True):
     """x: (B, 1, d) single token.  Returns (out (B,1,d), new_state).
 
-    state = {"conv": (B, w-1, di+2N) pre-conv inputs, "h": (B,nh,hp,N)}.
+    state = {"conv": (B, w-1, di+2N) pre-conv inputs, "h": (B,nh,hp,N)};
+    on a rank's share (:func:`ssd_split`) nh and di are the rank's, and
+    ``leave`` is as in :func:`ssd_forward`.
     """
+    split = ssd_split(p, cfg)
     B = x.shape[0]
-    di, N, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    N, hp = cfg.ssm_state, cfg.ssm_head_dim
+    di = p["wx"].shape[-1]
+    nh = di // hp
     x0 = x[:, 0]
+    bc = x0 @ p["wbc"]
+    x0, bc_in = _inputs(x0, bc, split)
     z = x0 @ p["wz"]
     xr = x0 @ p["wx"]
-    bc = x0 @ p["wbc"]
     dt = x0 @ p["wdt"]
 
-    cur = torch.cat([xr, bc], dim=-1)  # (B, di+2N)
+    cur = torch.cat([xr, bc_in], dim=-1)  # (B, di+2N)
     win = torch.cat([state["conv"], cur[:, None, :]], dim=1)  # (B, w, ch)
     kern = torch.cat([p["conv_x"], p["conv_bc"]], dim=-1)  # (w, ch)
     bias = torch.cat([p["conv_bx"], p["conv_bbc"]], dim=-1)
@@ -216,6 +271,6 @@ def ssd_decode_step(p: dict, state: dict, x: torch.Tensor, cfg):
     y = torch.einsum("bn,bhpn->bhp", Cm.float(), h)
     y = y + xs.float() * p["D"][None, :, None]
     y = y.reshape(B, di).to(x.dtype)
-    y = rms_norm(y * silu(z), p["norm"], cfg.norm_eps)
+    y = _gated_norm(y, z, p["norm"], cfg, split)
     out = (y @ p["out_proj"])[:, None, :]
-    return out, {"conv": new_conv, "h": h}
+    return (leave_model(out) if split and leave else out), {"conv": new_conv, "h": h}

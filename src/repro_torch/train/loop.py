@@ -47,7 +47,6 @@ from repro_torch.distributed.ctx import sharding_rules
 from repro_torch.distributed.fault import DeviceFailure, FailureInjector, StragglerMonitor
 from repro_torch.distributed.meshes import NamedSharding, P, make_mesh, units
 from repro_torch.models import Model
-from repro_torch.models.model import check_tensor_parallel
 from repro_torch.optim import AdamW
 from repro_torch.train.step import init_state, make_train_step
 from repro_torch.tree import eval_shape, tree_map
@@ -80,8 +79,7 @@ class Trainer:
     (ranks that share a card need gloo); units on several cards run as
     ranks without it, over the backend their placement gives
     (``distributed.procs.backend_for``).  ``model_par``: the ``model``
-    axis; over ranks, tensor parallelism (the SSM and hybrid families
-    raise)."""
+    axis; over ranks, tensor parallelism."""
 
     def __init__(
         self,
@@ -125,8 +123,6 @@ class Trainer:
         mp = self.model_par if n % self.model_par == 0 else 1
         self.mesh = make_mesh((n // mp, mp), ("data", "model"), devices=devices)
         self.active_devices = devices
-        if mp > 1 and (self.mesh.model_group is not None or self._spawns()):
-            check_tensor_parallel(self.cfg)
 
         state_shape = self._state_shape()
         pspecs = shd.param_specs(self.cfg, self.mesh, state_shape["params"])

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.distributed.ctx import data_context, mesh_context
 from repro_torch.distributed.meshes import NamedSharding, P
-from repro_torch.models.model import Model, check_tensor_parallel
+from repro_torch.models.model import Model
 from repro_torch.optim import AdamW, compress_grads, init_residuals
 from repro_torch.tree import leaves, leaves_with_paths, set_by_path, tree_map
 
@@ -113,19 +113,18 @@ def make_train_step(
     comes out model-local and complete: the gradients of the leaves the
     specs replicate but a region uses (``wk``/``wv`` with fewer KV heads
     than the axis, ``q_norm``/``k_norm``, a MoE layer's ``router`` and
-    ``shared_gate``) are summed over the model group by the region's
-    entry in the backward pass.  The reduction above then runs over the
-    data group, and the loss and metrics are averaged over it.  The SSM
-    and hybrid families raise there (``check_tensor_parallel``), as do
-    gradient compression and int8 moments of a leaf split over ``model``,
-    which have no tensor-parallel layout yet."""
+    ``shared_gate``, an SSM mixer's ``wbc``/``conv_bc``/``conv_bbc``) are
+    summed over the model group by the region's entry in the backward
+    pass, and the SSM's gated norm sums its mean square's gradient over
+    it (``distributed.ctx.model_sum``).  The reduction above then runs
+    over the data group, and the loss and metrics are averaged over it.
+    Gradient compression and int8 moments of a leaf split over ``model``
+    raise there: they have no tensor-parallel layout yet."""
     mesh = None if grad_shardings is None else leaves(grad_shardings)[0].mesh
     ranked = mesh is not None and mesh.group is not None
     tp = mesh if ranked and mesh.model_group is not None else None
-    if tp is not None:
-        check_tensor_parallel(model.cfg)
-        if compress:
-            raise NotImplementedError("gradient compression with the model axis across ranks")
+    if tp is not None and compress:
+        raise NotImplementedError("gradient compression with the model axis across ranks")
     whole = (tree_map(lambda s: NamedSharding(s.mesh, P()), grad_shardings)
              if ranked and compress else grad_shardings)
 
@@ -185,13 +184,6 @@ def make_train_step(
     return train_step
 
 
-def _checked(model: Model, mesh):
-    """``mesh``, once the model's family is known to run on it."""
-    if mesh is not None and mesh.model_group is not None:
-        check_tensor_parallel(model.cfg)
-    return mesh
-
-
 def _within(mesh):
     """``mesh_context(mesh)``; nothing for None (an outer context stays)."""
     return contextlib.nullcontext() if mesh is None else mesh_context(mesh)
@@ -201,10 +193,9 @@ def make_decode_step(model: Model, mesh: Optional[object] = None) -> Callable:
     """One decode step.  ``mesh``: a mesh over ranks whose ``model`` axis
     spans them (tensor-parallel serving): the parameters are each rank's
     shares (``NamedSharding.place`` of ``param_specs``, or
-    ``placed_params``), the cache holds the rank's KV heads
+    ``placed_params``), the cache holds the rank's KV heads and SSM heads
     (``Model.init_cache`` under the mesh, or the prefill's) and the logits
     come back whole on every rank."""
-    mesh = _checked(model, mesh)
 
     def serve_step(params, cache, token, pos):
         with _within(mesh):
@@ -215,8 +206,7 @@ def make_decode_step(model: Model, mesh: Optional[object] = None) -> Callable:
 
 def make_prefill(model: Model, mesh: Optional[object] = None) -> Callable:
     """The prefill; ``mesh`` as in :func:`make_decode_step` (the cache it
-    returns holds the rank's KV heads)."""
-    mesh = _checked(model, mesh)
+    returns holds the rank's KV and SSM heads)."""
 
     def prefill(params, batch):
         with _within(mesh):

@@ -32,7 +32,8 @@ spawned ranks, float32.
   recovery.
 * A checkpoint written over (2, 2) restores bit-exact in one process,
   and one written in one process restores bit-exact over (2, 2).
-* The MoE, SSM and hybrid families raise on a model axis across ranks.
+* The SSM and hybrid families' Trainer builds and steps over 4 ranks at
+  model_par 2 (``tests/test_torch_tp_ssm.py`` holds them to one process).
 * A planted fault, one rank keeping its attention sublayers' partial sums
   (it skips the model group's all-reduce out of the region), fails the
   comparison with one process.
@@ -503,17 +504,21 @@ def trainer_args(arch, tmp_path, steps=2):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b"])
-def test_moe_ssm_hybrid_raise_on_a_model_axis_across_ranks(tmp_path, arch):
-    """The SSM and hybrid families (MoE no longer: see the next test)."""
+def test_ssm_hybrid_trainer_builds_and_steps_at_model_par_2_over_four_ranks(tmp_path, arch):
+    """The SSM and hybrid families' Trainer over 4 gloo ranks at model_par 2
+    (refused before their mixers ran across ranks): it builds, and two
+    steps give finite losses, with the SSM mixer split over the model
+    group (``tests/test_torch_tp_ssm.py`` holds them to one process)."""
     from repro_torch.train.loop import Trainer
 
-    args = trainer_args(arch, tmp_path)
-    with pytest.raises(NotImplementedError, match="model axis across ranks"):
-        Trainer(*args, devices=units("cpu", count=4), model_par=2, backend="gloo",
-                device="cpu")
-    # the data axis alone, or the model axis within one process, still builds
-    Trainer(*args, devices=units("cpu", count=4), model_par=1, backend="gloo", device="cpu")
-    Trainer(*args, devices=units("cpu", count=4), model_par=2, device="cpu")
+    tr = Trainer(*trainer_args(arch, tmp_path), devices=units("cpu", count=4), model_par=2,
+                 backend="gloo", device="cpu")
+    assert dict(tr.mesh.shape) == {"data": 2, "model": 2}
+    spec = tr.state_shardings["params"]["blocks"]["ssm"]["wx"].spec
+    assert "model" in tuple(spec), spec
+    out = tr.run()
+    assert out["final_step"] == 2 and len(out["history"]) == 2
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
 
 
 def test_moe_trainer_builds_and_steps_at_model_par_2_over_four_ranks(tmp_path):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Phase 17 of ``chip_smoke.py`` alone: tensor-parallel serving over ranks
-(with ``--moe``, phase 18 alone: the MoE family).
+(with ``--moe``, phase 18 alone: the MoE family; with ``--ssm``, phase 19
+alone: the SSM and hybrid families).
 
-    python3 tools/serve_tp_cards.py [--moe] [--cards N]
+    python3 tools/serve_tp_cards.py [--moe | --ssm] [--cards N]
 
 Builds the kernels, then serves granite-8b at full width over 2 ranks
 whose ``model`` axis spans them -- 2 gloo ranks of one card, or a card
@@ -14,7 +15,12 @@ ms a step, the collectives' µs, each rank's peak memory).  Then
 serves qwen2-moe-a2.7b at full width and depth over 2 gloo ranks of one
 card (on several cards over min(cards, 4), a card each, then arctic-480b
 at full width over 4 cards), held to one process, with its planted
-faults (``chip_smoke.phase_serve_tp_moe``).  It prints each
+faults (``chip_smoke.phase_serve_tp_moe``).  ``--ssm`` serves
+mamba2-2.7b and hymba-1.5b at full width and depth over 2 gloo ranks of
+one card (on several cards over 2 cards, and on 4 over 4 too, with
+``launch.train --smoke --model-par 2`` of each through a recovery), held
+to one process, with mamba2's planted faults, and times ``ssd_scan`` at
+mamba2's heads a rank (``chip_smoke.phase_serve_tp_ssm``).  It prints each
 card's name and power limit, the phase's lines and, last, a JSON summary;
 any failed check raises.  Without a CUDA device it exits 2.
 """
@@ -37,7 +43,10 @@ import chip_smoke as CS  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cards", type=int, default=None)
-    ap.add_argument("--moe", action="store_true", help="phase 18 (the MoE family) alone")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--moe", action="store_true", help="phase 18 (the MoE family) alone")
+    which.add_argument("--ssm", action="store_true",
+                       help="phase 19 (the SSM and hybrid families) alone")
     args = ap.parse_args()
     import torch
 
@@ -56,11 +65,15 @@ def main() -> int:
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase = CS.phase_serve_tp_moe if args.moe else CS.phase_serve_tp
-    out, launches, times = phase(torch.device("cuda", 0), ROOT / "build" / "serve_tp",
-                                 cards=args.cards)
+    phase = (CS.phase_serve_tp_ssm if args.ssm else
+             CS.phase_serve_tp_moe if args.moe else CS.phase_serve_tp)
+    out, launches, times, *ssd = phase(torch.device("cuda", 0), ROOT / "build" / "serve_tp",
+                                       cards=args.cards)
     print(f"phase_s={time.perf_counter() - t0!r}")
-    print(json.dumps({"metrics": out, "launches": launches, "flash": times}, default=str))
+    summary = {"metrics": out, "launches": launches, "flash": times}
+    if ssd:
+        summary["ssd_scan"] = {f"{k} {dt}": t for (k, dt), t in ssd[0].items()}
+    print(json.dumps(summary, default=str))
     return 0
 
 
