@@ -79,7 +79,11 @@ carries the step's collectives on CUDA tensors (else the refused
 collective is printed); each rank's collectives' µs per step, step s and
 peak memory are printed; then ``repro_torch.launch.coschedule``'s main
 runs with a unit per card, its decisions replayed through
-``engine="vector"``.  Tensor-parallel serving (phase 17,
+``engine="vector"``; then granite-8b at full width trains with int8
+AdamW moments and gradient compression, its ``model`` axis across the
+ranks (``train_tp_int8_granite_8b``: on one card 4 of its 36 layers in
+float32 over 2 gloo ranks of the card, held to one process; on four
+cards 24 layers in bf16 over NCCL).  Tensor-parallel serving (phase 17,
 ``serve_tp_dense_cards``): granite-8b at full width and depth over 2
 ranks whose ``model`` axis spans them (2 gloo ranks of one card; on
 several cards, a card each over NCCL, then qwen3-32b over 4), each rank
@@ -103,7 +107,16 @@ on every rank, the gated norm's mean square summed over the model group,
 one all-reduce a mixer; hymba's FFN columns, its attention whole at 25
 heads), held to one process in bf16 and float32 at full depth; a rank
 skipping its mixer's all-reduce, or normalising over its own channels,
-must fail it; ``ssd_scan`` timed on mamba2's heads a rank.
+must fail it; ``ssd_scan`` timed on mamba2's heads a rank.  The dry-run over
+ranks (phase 20, ``dryrun_ranks_h100``): rank 0's step of the (1, 2)
+mesh -- granite-8b's prefill and decode as phase 17 served them, the
+training step of phase 16's int8 leg; on several cards also phase 17's
+qwen3-32b and, on four, phase 19's mamba2-2.7b at (1, 4)
+(``phase20_cases``) -- counted on fake tensors of the card over a fake
+process group must dispatch exactly the collectives, call for call and
+byte for byte, that phase's rank 0 did; the records'
+roofline cells then drive ``EcoSched(engine="torch")`` with a non-zero
+collective term against ``engine="vector"``.
 
 Phases: 1 device and build (and the tensor-core instructions in the SASS
 of the flash kernels and the bf16 ssd kernels, the TMA loads of the bf16
@@ -115,7 +128,7 @@ elastic, 5 pod scale, 6 fleet, 7 kernel timings, 8 serving, 9 SSD layer,
 14 roofline, 15 serving the dense, vision and encoder-decoder families,
 16 training over ranks, 17 tensor-parallel serving over ranks, 18
 tensor-parallel MoE serving over ranks, 19 tensor-parallel SSM and
-hybrid serving over ranks.
+hybrid serving over ranks, 20 the dry-run's collectives on one rank.
 ``score_reduce`` carries the idle-node guard in its one launch
 (``guard=``); phases 3-5 print its guarded calls, and phase 6 the
 guarded segments of the packed launches, one per staged burst.
@@ -133,6 +146,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3136,33 +3150,16 @@ def dryrun_one_card(device, arch, cell, **kw):
     the H100, on fake tensors of ``device``: the record, its
     ``derive_terms`` and the seconds.  On the card, memory allocated must
     not move and its peak must not rise."""
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.distributed.meshes import AbstractMesh
     from repro_torch.launch import dryrun as D
     from repro_torch.roofline import analysis as RA
     from repro_torch.roofline.hw import H100
 
-    on_card = device.type == "cuda"
-    if on_card:
-        # PyTorch initialises the CUDA context for fake tensors once per
-        # process and device with a 4-byte tensor
-        # (torch/_subclasses/fake_tensor.py, init_gpu_context): taken here,
-        # before the window, so the window holds the dry-run alone
-        with RA.fake_mode():
-            torch.empty(0, device=device)
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rec = D.dryrun_cell(arch, cell, mesh=AbstractMesh((1, 1), ("data", "model")),
-                        device=device, **kw)
+    rec = dryrun_window(device, lambda: D.dryrun_cell(
+        arch, cell, mesh=AbstractMesh((1, 1), ("data", "model")), device=device, **kw))
     wall = time.perf_counter() - t0
-    if on_card:
-        after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
-        check(after == before and peak == before,
-              f"dry-run {arch} {cell.name} allocated on the card: "
-              f"{before} -> {after} bytes, peak {peak}")
     return rec, RA.derive_terms(rec, get_config(arch), cell, H100), wall
 
 
@@ -3352,8 +3349,10 @@ class CollectiveClock:
     other ranks included.  NCCL returns when a collective is queued, so on
     a card it is timed by CUDA events around the call on the caller's
     stream, which waits for the collective; gloo returns when it is done,
-    so it is timed on the host.  ``take()`` hands back and clears the
-    calls so far; each train step built by ``make_train_step`` while
+    so it is timed on the host.  Each call also keeps its result's bytes
+    (the tensor reduced in place, or the gathered or scattered output), as
+    the dry-run counts them (``coll_of``).  ``take()`` hands back and
+    clears the calls so far; each train step built by ``make_train_step`` while
     entered closes a tally of its own (``per_step_us``).  Read either
     after the device has synchronised.  A group's first collective also
     sets up its communicator, and checkpoints gather between steps: the
@@ -3381,16 +3380,18 @@ class CollectiveClock:
 
         def call(*a, **k):
             t = a[0] if name == "all_reduce" else a[1]  # the input
+            res = a[0].numel() * a[0].element_size()  # the result (the output)
             if self.events:
                 e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 e0.record()
                 out = fn(*a, **k)
                 e1.record()
-                self.calls.append((name, str(t.dtype), t.numel(), (e0, e1)))
+                self.calls.append((name, str(t.dtype), t.numel(), (e0, e1), res))
                 return out
             t0 = time.perf_counter()
             out = fn(*a, **k)
-            self.calls.append((name, str(t.dtype), t.numel(), (time.perf_counter() - t0) * 1e6))
+            self.calls.append((name, str(t.dtype), t.numel(),
+                               (time.perf_counter() - t0) * 1e6, res))
             return out
         return call
 
@@ -3412,12 +3413,12 @@ class CollectiveClock:
 
     @staticmethod
     def _in_us(calls):
-        return [(n, d, k, us if isinstance(us, float) else us[0].elapsed_time(us[1]) * 1e3)
-                for n, d, k, us in calls]
+        return [(n, d, k, us if isinstance(us, float) else us[0].elapsed_time(us[1]) * 1e3, r)
+                for n, d, k, us, r in calls]
 
     def take(self):
         """The calls since the last ``take()`` (or step), as (name, type,
-        elements, µs)."""
+        elements, µs, result bytes)."""
         out, self.calls = self._in_us(self.calls), []
         return out
 
@@ -3581,7 +3582,8 @@ def phase_train_dp(device, workdir, cards=None, cosched_steps=6):
     1 on one card); with one card, also 2 ranks on it over gloo where gloo
     carries the step's collectives on CUDA tensors (else the collective it
     refused is printed).  Then ``phase_cosched`` as ``cosched_cards``: the
-    co-scheduler with each job on its own cards."""
+    co-scheduler with each job on its own cards; then ``train_tp_int8``,
+    the leg ``train_tp_int8_granite_8b``."""
     import torch
     from repro_torch.distributed.meshes import LogicalDevice
 
@@ -3611,6 +3613,348 @@ def phase_train_dp(device, workdir, cards=None, cosched_steps=6):
                                    host_devices=None, jobs="granite-8b,mamba2-2.7b")
     check(out["cosched"]["score_reduce_launches"] > 0,
           "score_reduce was never launched on the multi-card co-scheduling path")
+    out["train_tp_int8"] = train_tp_int8(device, workdir, n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16's leg train_tp_int8_granite_8b: int8 moments and compression with
+# the model axis across ranks
+# ---------------------------------------------------------------------------
+
+# granite-8b at full width: on one card TPI_LAYERS of its 36 layers in
+# float32 over 2 gloo ranks of the card, held to one process; on four
+# cards TPI_FOUR_LAYERS in bf16 over NCCL, a card a rank
+TPI_ARCH, TPI_LAYERS, TPI_B, TPI_S, TPI_STEPS, TPI_LR = "granite-8b", 4, 4, 2048, 6, 1e-4
+# the four-card leg's depth: a train step returns a new state beside the
+# one it was given, so at the update a rank holds both (a layer's share
+# at (1, 4) is 0.87 GB of bf16 parameters, master copies, residuals and
+# int8 codes, twice over): at 36 layers the update ran out of a card's
+# 79 GiB, at 24 about 62 GiB
+TPI_FOUR_LAYERS = 24
+TPI_PARAM_TOL = 1e-4  # each parameter's |Δ| against one process, of its leaf's max |p|
+TPI_DRYRUN_KW = dict(opt_dtype="int8", compress=True)  # the leg's optimizer in the dry-run
+
+
+def tpi_cfg(dtype, layers=None):
+    """The leg's config: granite-8b in ``dtype`` at ``layers`` layers."""
+    return tp_cfg(TPI_ARCH, dtype, layers)
+
+
+def tpi_parts(cfg, mesh):
+    """The leg's model (remat full), optimizer (int8 moments, master
+    weights), and its train step with compression: over ``mesh``'s ranks
+    with the shardings ``Trainer`` gives them (returned too), or in one
+    process where ``mesh`` is None."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.optim import AdamW, AdamWConfig, WarmupCosine
+    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.tree import eval_shape, tree_map
+
+    model = build_model(cfg, Runtime(remat="full"))
+    opt = AdamW(AdamWConfig(state_dtype="int8", master_weights=True))
+    sched = WarmupCosine(peak_lr=TPI_LR, warmup_steps=1, decay_steps=100)
+    like = eval_shape(lambda: init_state(model, opt, 0, compress=True, device="cpu"))
+    if mesh is None:
+        return model, opt, make_train_step(model, opt, sched, compress=True), like, None
+    pspecs = shd.param_specs(cfg, mesh, like["params"])
+    specs = {"params": pspecs, "opt": shd.opt_state_specs(cfg, mesh, like["opt"]),
+             "step": shd.P(), "residuals": pspecs}
+    gspecs = tree_map(lambda sp, leaf: shd.zero_extend(sp, tuple(leaf.shape), mesh),
+                      pspecs, like["params"])
+    shardings = shd.named(mesh, specs)
+    step = make_train_step(model, opt, sched, compress=True,
+                           grad_shardings=shd.named(mesh, gspecs),
+                           opt_shardings=shardings["opt"])
+    return model, opt, step, like, shardings
+
+
+def tpi_state(model, opt, like, device, shardings=None):
+    """The leg's mid-run state on ``device``, leaf by leaf from seeds (each
+    leaf drawn whole, then placed under ``shardings``, a rank's shares,
+    where given): the parameters ``model.init`` draws from SEED
+    (``placed_params`` over ranks), float32 master copies of them, first
+    moments N(0, 1e-3²), second moments their square plus 1e-6 (a
+    second moment that carries earlier gradients: every int8 code is
+    nonzero) encoded to int8 codes, residuals N(0, 1e-5²), count and step
+    10."""
+    import torch
+    from repro_torch.train.step import placed_params
+    from repro_torch.tree import leaves_with_paths, set_by_path
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    if shardings is None:
+        params = model.init(gen, device=device)
+        put = {}
+    else:
+        params = placed_params(model, gen, shardings["params"], device=device)
+        put = dict(leaves_with_paths(shardings))
+
+    def placed(path, t):
+        return put[path].place(t) if put else t
+
+    state = {"params": params, "opt": {"m": {}, "v": {}, "master": {}}, "residuals": {}}
+    for i, (path, p) in enumerate(leaves_with_paths(like["params"])):
+        g = torch.Generator(device=device).manual_seed(SEED + 1 + i)
+        m = torch.randn(p.shape, generator=g, device=device) * 1e-3
+        for key, moment in (("m", m), ("v", m.square() + 1e-6)):
+            codes = opt._encode(moment)
+            set_by_path(state["opt"][key], path,
+                        {k: placed(f"opt/{key}/{path}/{k}", t) for k, t in codes.items()})
+        del m, codes, moment
+        r = torch.randn(p.shape, generator=g, device=device) * 1e-5
+        set_by_path(state["residuals"], path, placed(f"residuals/{path}", r))
+    for path, p in leaves_with_paths(params):
+        # the rank's parameters are its share along ``model``: its master
+        # copy is that share's along the data axes too
+        master = p.to(torch.float32, copy=True)
+        set_by_path(state["opt"]["master"], path,
+                    put[f"opt/master/{path}"].data_part.place(master) if put else master)
+    ten = torch.full((), 10, dtype=torch.int32, device=device)
+    state["opt"]["count"], state["step"] = ten, ten.clone()
+    return state
+
+
+def tpi_batches(cfg, mesh, device, n):
+    """SyntheticLM's global batches 10, 11, ... of the leg's shape, placed
+    as ``mesh``'s rank takes them (on ``device`` without a mesh)."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.meshes import NamedSharding
+
+    data = SyntheticLM(cfg, TPI_B, TPI_S)
+    out = []
+    for k in range(n):
+        b = data.global_batch(10 + k)
+        if mesh is None:
+            out.append({key: torch.from_numpy(v).to(device) for key, v in b.items()})
+        else:
+            specs = shd.batch_specs(cfg, mesh, {key: v.shape for key, v in b.items()})
+            out.append({key: NamedSharding(mesh, specs[key]).place(torch.from_numpy(v))
+                        for key, v in b.items()})
+    return out
+
+
+def tpi_one_process(device, cfg, want_path):
+    """The leg in one process on ``device``: its state and one step.  The
+    new parameters, codes, scales and residuals go to ``want_path`` (on
+    the host, for the ranks to hold their shares to); returns the loss,
+    grad norm, each leaf's largest magnitude, the step's seconds and the
+    peak memory."""
+    import torch
+    from repro_torch.tree import leaves_with_paths
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    model, opt, step, like, _ = tpi_parts(cfg, None)
+    state = tpi_state(model, opt, like, device)
+    batch = tpi_batches(cfg, None, device, 1)[0]
+    sync(device)
+    t0 = time.perf_counter()
+    new, met = step(state, batch)
+    loss = float(met["loss"])
+    sync(device)
+    m = {"loss": loss, "grad_norm": float(met["grad_norm"]), "step_s": time.perf_counter() - t0}
+    del state, batch
+    want, maxes = {}, {}
+    for path, t in leaves_with_paths(new):
+        if path.startswith(("params/", "opt/m/", "opt/v/", "residuals/")):
+            want[path] = t.cpu()
+            if t.is_floating_point():
+                maxes[path] = float(t.abs().max())
+    m["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                     if device.type == "cuda" else "not measured")
+    del new
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    torch.save(want, want_path)
+    m["maxes"] = maxes
+    return m
+
+
+def tpi_compare(state, shardings, want_path, maxes):
+    """This rank's new state against its shares of the one-process step's
+    (``want_path``, read as a memory map).  First the residuals: the
+    elements whose compressed code sat on a rounding boundary and rounded
+    the other way (their residuals swap sign, as
+    ``tests/torch_parity.py`` finds them) are counted, and the largest
+    |Δ| elsewhere of the leaf's max kept.  Then each parameter leaf's
+    largest |Δ| of its leaf's max |p|, outside those elements (a flipped
+    code moves the gradient Adam takes by a quantization step); the codes
+    off by one (boundary flips) and the largest code difference; the
+    scales' largest |Δ| of their leaf's max."""
+    import torch
+    from repro_torch.tree import leaves_with_paths
+
+    want = torch.load(want_path, map_location="cpu", mmap=True, weights_only=True)
+    got, put = dict(leaves_with_paths(state)), dict(leaves_with_paths(shardings))
+    out = {"param_rel_max": 0.0, "code_flips": 0, "codes": 0, "code_diff_max": 0,
+           "scale_rel_max": 0.0, "residual_rel_max": 0.0, "residual_flips": 0}
+    flipped = {}
+    for path in sorted(want, key=lambda p: not p.startswith("residuals/")):
+        g, share = got[path], put[path].place(want[path])
+        if path.endswith("/q"):
+            d = (g.to(torch.int32) - share.to(torch.int32)).abs()
+            out["code_flips"] += int((d == 1).sum())
+            out["codes"] += d.numel()
+            out["code_diff_max"] = max(out["code_diff_max"], int(d.max()))
+            continue
+        d = (g - share).abs()
+        leaf = path.split("/", 1)[1]
+        if path.startswith("residuals/"):
+            flip = flipped[leaf] = ((g + share).abs() <= 0.01 * d) & (d > 1e-3 * maxes[path])
+            out["residual_flips"] += int(flip.sum())
+            d = d.masked_fill(flip, 0)
+        elif path.startswith("params/") and leaf in flipped:
+            d = d.masked_fill(flipped[leaf], 0)
+        key = ("param_rel_max" if path.startswith("params/") else
+               "scale_rel_max" if path.endswith("/scale") else "residual_rel_max")
+        out[key] = max(out[key], float(d.max()) / max(maxes[path], 1e-30))
+    return out
+
+
+def tpi_rank(cfg, want_path, maxes, steps):
+    """The leg in each rank: a (1, ranks) mesh over the job's units, the
+    leg's state as the rank holds it (``tpi_state``), ``steps`` train steps
+    under a ``CollectiveClock``; the first held to the one-process step
+    where ``want_path`` is given (``tpi_compare``).  Returns the losses,
+    the first step's loss, grad norm and collectives by kind, each step's
+    seconds and collective µs, the bytes the rank holds (parameters, int8
+    moments, master copies, residuals), the moments' bytes under the
+    reference's specs (``launch.dryrun.shard_bytes``) and the peak memory."""
+    import torch
+    from repro_torch.distributed import procs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.meshes import AbstractMesh, make_mesh
+    from repro_torch.launch.dryrun import shard_bytes
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = procs.current()
+    dev = world.device
+    cuda = dev.type == "cuda"
+    mesh = make_mesh((1, world.size), ("data", "model"), devices=list(world.units))
+    model, opt, step, like, sh = tpi_parts(cfg, mesh)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = tpi_state(model, opt, like, dev, sh)
+    batches = tpi_batches(cfg, mesh, dev, steps)
+    sync(dev)
+    out = {"rank": world.rank, "device": str(dev), "init_s": time.perf_counter() - t0}
+    gb = {k: sum(t.nbytes for t in leaves(v)) / 1e9 for k, v in (
+        ("params", state["params"]), ("moments", {"m": state["opt"]["m"], "v": state["opt"]["v"]}),
+        ("master", state["opt"]["master"]), ("residuals", state["residuals"]))}
+    out["held_gb"] = gb
+    ospecs = shd.opt_state_specs(cfg, AbstractMesh((1, world.size), ("data", "model")),
+                                 like["opt"])
+    out["moments_gb_by_specs"] = shard_bytes(
+        {"m": like["opt"]["m"], "v": like["opt"]["v"]},
+        {"m": ospecs["m"], "v": ospecs["v"]},
+        AbstractMesh((1, world.size), ("data", "model"))) / 1e9
+    losses, times, coll = [], [], []
+    with CollectiveClock(events=cuda and world.backend == "nccl") as clock:
+        for k in range(steps):
+            clock.take()
+            t0 = time.perf_counter()
+            state, met = step(state, batches[k])
+            losses.append(float(met["loss"]))
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+            calls = clock.take()
+            coll.append(sum(c[3] for c in calls))
+            if not k:
+                out.update(loss=losses[0], grad_norm=float(met["grad_norm"]),
+                           step_coll=coll_of(calls))
+                if want_path is not None:
+                    out["vs_one_process"] = tpi_compare(state, sh, want_path, maxes)
+    out.update(losses=losses, step_s=times, collective_us=coll,
+               s_per_step=statistics.median(times[1:]) if steps > 1 else times[0],
+               collective_us_per_step=statistics.median(coll[1:]) if steps > 1 else coll[0],
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda
+               else "not measured")
+    return out
+
+
+def train_tp_int8(device, workdir, cards):
+    """Phase 16's leg ``train_tp_int8_granite_8b``: granite-8b at full width
+    (d_model 4,096, 32/8 heads at hd 128, d_ff 14,336, vocab 49,152)
+    trained with int8 AdamW moments (master weights) and gradient
+    compression, ``remat`` full, B TPI_B x S TPI_S, its ``model`` axis
+    across ranks (the codes of a leaf split along its last dimension whole
+    on every rank).
+
+    On one card: TPI_LAYERS of its 36 layers in float32 (TF32 off), first
+    one step in one process on the card (its result to the host), then 2
+    gloo ranks of the card at (1, 2): the first step held to the one
+    process's (loss and grad norm rel. 1e-5, each parameter within
+    TPI_PARAM_TOL of its leaf's max |p| outside the elements whose
+    compressed code flipped, no int8 code more than one off; the codes
+    off by one and the flipped compressed codes, boundary flips, counted,
+    at most 1e-3 of the codes; ``tpi_compare``), then TPI_STEPS steps in
+    all.  On four cards: TPI_FOUR_LAYERS of the 36 layers in bf16 over
+    NCCL at (1, 4), TPI_STEPS steps with finite losses; then
+    ``launch.train --smoke --model-par 2 --opt-dtype int8
+    --compress-grads`` through a recovery.  Each rank's s a step (median
+    of steps 2 on), collective µs a step, peak memory, the bytes it holds
+    and its moments' bytes against the reference's specs are printed.
+    Returns the metrics, with rank 0's first step's collectives by kind
+    and the config, mesh and cell for phase 20."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import procs
+    from repro_torch.distributed.meshes import LogicalDevice
+
+    cuda = device.type == "cuda"
+    four = cuda and cards >= 4
+    m = 4 if four else 2
+    cfg = tpi_cfg("bfloat16", TPI_FOUR_LAYERS) if four else tpi_cfg("float32", TPI_LAYERS)
+    out = {"ranks_n": m, "layers": cfg.num_layers, "dtype": cfg.dtype}
+    want_path, maxes = None, None
+    if not four:
+        want_path = workdir / "tpi_one_process.pt"
+        one = tpi_one_process(device, cfg, want_path)
+        maxes = one.pop("maxes")
+        out["one_process"] = one
+        print(f"  train_tp_int8_granite_8b one process ({cfg.num_layers} layers, "
+              f"{cfg.dtype}): " + " ".join(f"{k}={v!r}" for k, v in one.items()))
+    backend = "nccl" if four else "gloo"
+    rank_units = ([LogicalDevice(i, torch.device("cuda", i)) for i in range(m)] if four
+                  else [LogicalDevice(i, device) for i in range(m)])
+    t0 = time.perf_counter()
+    try:
+        res = procs.spawn(tpi_rank, (cfg, want_path, maxes, TPI_STEPS), units=rank_units,
+                          jobdir=str(workdir / "tpi"), backend=backend, timeout=TP_TIMEOUT_S)
+    finally:
+        if want_path is not None:
+            want_path.unlink(missing_ok=True)
+    out["ranks_s"] = time.perf_counter() - t0
+    for r in res:
+        print(f"    train_tp_int8_granite_8b rank {r['rank']} on {r['device']} ({backend}): "
+              + " ".join(f"{k}={v!r}" for k, v in r.items() if k not in ("rank", "device")))
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"train_tp_int8 rank {r['rank']}: losses {r['losses']}")
+        check(abs(r["held_gb"]["moments"] - r["moments_gb_by_specs"]) < 1e-9,
+              f"train_tp_int8 rank {r['rank']}: moments {r['held_gb']['moments']} GB held, "
+              f"{r['moments_gb_by_specs']} GB by the reference's specs")
+        if want_path is None:
+            continue
+        v = r["vs_one_process"]
+        for k in ("loss", "grad_norm"):
+            e = abs(r[k] - one[k]) / abs(one[k])
+            check(e <= 1e-5, f"train_tp_int8 rank {r['rank']}: {k} {r[k]} vs {one[k]} (rel {e})")
+        check(v["param_rel_max"] <= TPI_PARAM_TOL and v["code_diff_max"] <= 1
+              and v["code_flips"] + v["residual_flips"] <= 1e-3 * v["codes"],
+              f"train_tp_int8 rank {r['rank']} against one process: {v}")
+    out["ranks"] = res
+    out["phase20"] = dict(cfg=cfg, mesh=(1, m), tally=res[0]["step_coll"],
+                          cell=ShapeCell(f"train_b{TPI_B}s{TPI_S}", "train", TPI_S, TPI_B))
+    if four:
+        out["launch_train"] = ssm_train_cards(
+            device, workdir, TPI_ARCH, extra=("--opt-dtype", "int8", "--compress-grads"))
     return out
 
 
@@ -3619,10 +3963,27 @@ def phase_train_dp(device, workdir, cards=None, cosched_steps=6):
 # ---------------------------------------------------------------------------
 
 
+# CollectiveClock's names -> the dry-run's kinds
+CLOCK_KINDS = {"all_reduce": "all-reduce", "_all_gather": "all-gather",
+               "_reduce_scatter": "reduce-scatter"}
+
+
+def coll_of(calls):
+    """{kind: [calls, result bytes, µs]} of ``CollectiveClock.take()``,
+    under the dry-run's kinds."""
+    out = {}
+    for name, _, _, us, res in calls:
+        c = out.setdefault(CLOCK_KINDS[name], [0, 0, 0.0])
+        c[0] += 1
+        c[1] += res
+        c[2] += us
+    return out
+
+
 def tally_summary(calls):
     """{"name dtype": [calls, µs]} of ``CollectiveClock.take()``."""
     out = {}
-    for name, dtype, _, us in calls:
+    for name, dtype, _, us, _ in calls:
         c = out.setdefault(f"{name} {dtype}", [0, 0.0])
         c[0] += 1
         c[1] += us
@@ -3817,7 +4178,9 @@ def tp_serve_leg(leg, mesh, tally):
             sync(dev)
             m["prefill_s"] = time.perf_counter() - t0
             m["flash_launches_per_prefill"] = FA.STATS["flash_attention"]
-            m["prefill_collectives"] = tally_summary(tally.take())
+            calls = tally.take()
+            m["prefill_collectives"] = tally_summary(calls)
+            m["prefill_coll"] = coll_of(calls)
             if "k" in cache:
                 m["kv_heads"] = cache["k"].shape[3]
             if "h" in cache:  # the rank's SSM heads, and its x channels beside B|C
@@ -3834,6 +4197,8 @@ def tp_serve_leg(leg, mesh, tally):
                 sync(dev)
                 step_s.append(time.perf_counter() - t0)
                 calls = tally.take()
+                if not i:
+                    m["decode_coll"] = coll_of(calls)
                 step_us.append(sum(c[3] for c in calls))
                 dtypes |= {f"{c[0]} {c[1]}" for c in calls}
                 check(bool(torch.isfinite(lg.float()).all()),
@@ -4071,7 +4436,7 @@ def phase_serve_tp(device, workdir, cards=None):
         check(c["prefill_rel_err"] < lim_q[0] and c["decode_max_rel_err"] < lim_q[1],
               f"tp {TP_BIG_ARCH} at {TP_BIG_ONE_LAYERS} layers: rel errs {c} against one "
               "process")
-        out["qwen3_full"] = {r["rank"]: r["full"][0] for r in res}
+        out["qwen3_full"], out["qwen3_mp"] = {r["rank"]: r["full"][0] for r in res}, m
         if m == 4:
             launches["qwen3_32b_mp4"] = sum(r["full"][0]["flash_launches_per_prefill"]
                                             for r in res)
@@ -4283,11 +4648,12 @@ def ssm_serve_over(device, workdir, arch, m, n, one, faults=()):
     return out, sum(r["bfloat16"][0]["flash_launches_per_prefill"] for r in res)
 
 
-def ssm_train_cards(device, workdir, arch):
+def ssm_train_cards(device, workdir, arch, extra=()):
     """``python -m repro_torch.launch.train --arch ARCH --smoke --model-par
-    2`` on the node's cards (a rank a card over NCCL), SSM_TRAIN_STEPS
-    steps with 2 cards lost at SSM_FAIL_AT: it must reach the last step
-    after one recovery.  Returns its summary line and seconds."""
+    2`` (and the flags ``extra``) on the node's cards (a rank a card over
+    NCCL), SSM_TRAIN_STEPS steps with 2 cards lost at SSM_FAIL_AT: it must
+    reach the last step after one recovery.  Returns its summary line and
+    seconds."""
     import os
 
     ckpt = workdir / f"train_{arch}"
@@ -4297,7 +4663,7 @@ def ssm_train_cards(device, workdir, arch):
         shutil.rmtree(ckpt)
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
            "--model-par", "2", "--steps", str(SSM_TRAIN_STEPS), "--fail-at", str(SSM_FAIL_AT),
-           "--fail-devices", "2", "--ckpt-every", "8", "--ckpt-dir", str(ckpt)]
+           "--fail-devices", "2", "--ckpt-every", "8", "--ckpt-dir", str(ckpt), *extra]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
     p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
@@ -4308,8 +4674,8 @@ def ssm_train_cards(device, workdir, arch):
           f"{p.returncode}:\n{p.stderr[-3000:]}")
     check(f"step={SSM_TRAIN_STEPS} " in done[-1] and "recoveries=1 " in done[-1],
           f"launch.train {arch} --model-par 2: {done[-1]}")
-    print(f"  launch.train {arch} --smoke --model-par 2 --fail-at {SSM_FAIL_AT} "
-          f"--fail-devices 2: {done[-1]} in {secs:.1f} s")
+    print(f"  launch.train {arch} --smoke --model-par 2 {' '.join(extra)} --fail-at "
+          f"{SSM_FAIL_AT} --fail-devices 2: {done[-1]} in {secs:.1f} s")
     return done[-1], secs
 
 
@@ -4392,6 +4758,187 @@ def phase_serve_tp_ssm(device, workdir, cards=None):
                 print(f"  ssd_scan {key} at {case} {dt}: " + " ".join(
                     f"{k}={v!r}" for k, v in t.items() if k not in ("shape", "dtype")))
     return out, launches, flash_t, ssd_t
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the dry-run's collectives on one rank of a multi-chip mesh,
+# dryrun_ranks_h100
+# ---------------------------------------------------------------------------
+
+# train steps a job runs in the scheduled roofline cells (prefill and
+# decode take ROOF_STEPS)
+ROOF_TRAIN_STEPS = 2_000
+
+
+def serve_case(arch, m, ranks, cfg):
+    """Phase 20's prefill and decode cases of a serving leg over (1, ``m``)
+    ranks (``ranks``: each rank's metrics by leg, as phases 17 and 19
+    return them; the bf16 leg's): rank 0's collectives of the prefill and
+    of the first decode step, and the cells phase 8's batch and cache
+    give."""
+    from repro_torch.configs.base import ShapeCell
+
+    m0 = ranks[0]["bfloat16"]
+    cells = {"prefill": ShapeCell(f"prefill_b{SERVE_B}s{SERVE_P}", "prefill", SERVE_P, SERVE_B),
+             "decode": ShapeCell(f"decode_b{SERVE_B}c{SERVE_CAP}", "decode", SERVE_CAP,
+                                 SERVE_B)}
+    return [dict(arch=arch, cfg=cfg, cell=cells[k], mesh=(1, m), tally=m0[f"{k}_coll"],
+                 kw={}, record=True) for k in ("prefill", "decode")]
+
+
+def phase20_cases(tp, ssm, leg):
+    """Phase 20's cases from what the earlier phases ran: granite-8b's
+    prefill and decode over TP_M ranks (phase 17); on several cards
+    qwen3-32b's over phase 17's ranks and, on four, mamba2-2.7b's over 4
+    (phase 19); the training step of phase 16's int8 leg at its own
+    config, held to rank 0's tally, and the arch's whole config recorded
+    at the leg's mesh and cell."""
+    from repro_torch.configs import get_config
+
+    cases = serve_case(TP_ARCH, TP_M, tp["ranks"], tp_cfg(TP_ARCH, "bfloat16"))
+    if "qwen3_full" in tp:
+        cases += serve_case(TP_BIG_ARCH, tp["qwen3_mp"],
+                            {r: {"bfloat16": m} for r, m in tp["qwen3_full"].items()},
+                            tp_cfg(TP_BIG_ARCH, "bfloat16"))
+    arch = SSM_TP_ARCHS[0]
+    if "mp4" in ssm.get(arch, {}):
+        cases += serve_case(arch, 4, ssm[arch]["mp4"]["ranks"], tp_cfg(arch, "bfloat16"))
+    p20 = leg["phase20"]
+    return cases + [
+        dict(arch=TPI_ARCH, cfg=p20["cfg"], cell=p20["cell"], mesh=p20["mesh"],
+             tally=p20["tally"], kw=TPI_DRYRUN_KW, record=False),
+        dict(arch=TPI_ARCH, cfg=get_config(TPI_ARCH), cell=p20["cell"], mesh=p20["mesh"],
+             tally=None, kw=TPI_DRYRUN_KW, record=True)]
+
+
+def dryrun_window(device, fn):
+    """``fn()`` with the card's memory watched: allocated memory must not
+    move and its peak must not rise."""
+    import torch
+    from repro_torch.roofline import analysis as RA
+
+    on_card = device.type == "cuda"
+    if on_card:
+        # PyTorch initialises the CUDA context for fake tensors once per
+        # process and device with a 4-byte tensor
+        # (torch/_subclasses/fake_tensor.py, init_gpu_context): taken here,
+        # before the window, so the window holds the dry-run alone
+        with RA.fake_mode():
+            torch.empty(0, device=device)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    if on_card:
+        after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+        check(after == before and peak == before,
+              f"dry-run allocated on the card: {before} -> {after} bytes, peak {peak}")
+    return out
+
+
+def phase_dryrun_ranks(device, path, cases):
+    """Phase 20, cell ``dryrun_ranks_h100``: the dry-run of each of
+    ``cases`` (dicts of ``arch``, the ``cfg`` a phase ran, its ``cell``,
+    its ``mesh`` (1, m), rank 0's collectives by kind there (``tally``,
+    ``coll_of``), the trace's options ``kw`` and whether a record of the
+    arch's own config is made, ``record``): rank 0's step of the mesh
+    counted on fake tensors of the card (``launch.dryrun``'s rank trace)
+    must dispatch exactly the calls and result bytes the phase's rank 0
+    did, kind by kind; beside each, ``coll_bytes / H100.ici_bw`` and the
+    collective µs measured.  Then ``RooflinePerfModel`` on cells built
+    from the records (``chips_ref`` the mesh's chips) drives
+    ``EcoSched(engine="torch")`` on the paper's ``Node(4, 2)`` against
+    ``engine="vector"``: the same schedule, ``score_reduce`` launched
+    (counted into ``path``), and t̂(g) printed for g = 1-4 with and without
+    the collective term.  Allocated memory must not move across the
+    dry-runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import EcoSched, Node, RooflinePerfModel, simulate
+    from repro_torch.distributed.meshes import AbstractMesh
+    from repro_torch.kernels import score_reduce as K
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.roofline.hw import H100
+
+    from repro_torch.models import Runtime
+
+    rt = Runtime(remat="full", attn_impl="auto")  # the plain routes: the same collectives
+    out = {"cases": [], "sched": {}}
+    sched_cells = {}
+    for c in cases:
+        cfg, cell, mesh = c["cfg"], c["cell"], AbstractMesh(c["mesh"], ("data", "model"))
+        name = f"{c['arch']}@{cell.kind}@1x{c['mesh'][1]}"
+        t0 = time.perf_counter()
+        rec = None
+        if c["record"]:
+            rec = dryrun_window(device, lambda: D.dryrun_cell(
+                c["arch"], cell, mesh=mesh, rt=rt, skip_variants=True, device=device,
+                grad_accum=1, **c["kw"]))
+        if rec is not None and not rec["pad_changes"] and cfg == get_config(c["arch"]).replace(
+                dtype=cfg.dtype):
+            counts = rec["counts_full"]
+            got = {k: rec["cost_full_module"][f"coll_{k}"] for k in RA.COLLECTIVE_KINDS}
+        else:  # the phase ran another config (a cut, or unpadded): count that one
+            rc = dryrun_window(device, lambda: D.trace_cell(
+                cfg, cell, mesh, rt, grad_accum=1, device=device, **c["kw"]).rank_costs)
+            counts = rc["_counts"]
+            got = {k: rc[f"coll_{k}"] for k in RA.COLLECTIVE_KINDS}
+        wall = time.perf_counter() - t0
+        want = {k: (c["tally"] or {}).get(k, [0, 0, 0.0]) for k in RA.COLLECTIVE_KINDS}
+        bad = {k: ((counts[k], got[k]), tuple(want[k][:2])) for k in RA.COLLECTIVE_KINDS
+               if c["tally"] is not None and (counts[k] != want[k][0] or got[k] != want[k][1])}
+        measured_us = sum(v[2] for v in want.values())
+        row = dict(name=name, layers=cfg.num_layers, calls={k: counts[k] for k in counts
+                                                              if counts[k]},
+                   coll_bytes=sum(got.values()),
+                   coll_over_ici_us=sum(got.values()) / H100.ici_bw * 1e6,
+                   measured_collective_us=measured_us if c["tally"] is not None else None,
+                   wall_s=wall)
+        print(f"  dryrun_ranks_h100 {name} ({cfg.num_layers} layers, {cfg.dtype}): "
+              + " ".join(f"{k}={v!r}" for k, v in row.items() if k != "name"))
+        check(not bad, f"dryrun_ranks_h100 {name}: the rank trace's (calls, bytes) differ from "
+                       f"rank 0's tally: {bad}")
+        out["cases"].append(row)
+        if rec is not None:
+            check(rec["coll_counted"] and rec["cost_totals"]["coll_bytes"] > 0,
+                  f"dryrun_ranks_h100 {name}: the record counts no collectives")
+            terms = RA.derive_terms(rec, get_config(c["arch"]), cell, H100)
+            sched_cells[name] = {
+                "chips_ref": rec["chips"], "t_compute": terms["t_compute"],
+                "t_memory": terms["t_memory"], "t_collective": terms["t_collective"],
+                "steps": ROOF_TRAIN_STEPS if cell.kind == "train" else ROOF_STEPS[cell.kind]}
+    # the roofline schedule with the collective term
+    truth = roof_truth(sched_cells, H100, ROOF_COUNTS)
+    node = Node(4, 2, H100.power_idle)
+    res = {}
+    for engine in ("torch", "vector"):
+        pm = RooflinePerfModel(sched_cells, counts=ROOF_COUNTS, chip=H100, units_to_chips=1)
+        extra = {"device": device} if engine == "torch" else {}
+        pol = EcoSched(pm, lam=LAM, tau=TAU, engine=engine, **extra)
+        if engine == "torch":
+            K.reset_stats()
+        res[engine] = simulate(pol, node, truth, queue=sorted(truth))
+        if engine == "torch":
+            kstats = read_stats()
+            path.add(kstats)
+    check(fp(res["torch"]) == fp(res["vector"]),
+          f"dryrun_ranks_h100: torch schedule {fp(res['torch'])} differs from vector "
+          f"{fp(res['vector'])}")
+    n = kstats["score_reduce"]["launches"]
+    check(n > 0, "dryrun_ranks_h100: score_reduce was never launched")
+    pm = RooflinePerfModel(sched_cells, counts=ROOF_COUNTS, chip=H100, units_to_chips=1)
+    for job, cell in sorted(sched_cells.items()):
+        terms = {g: pm._terms_at(cell, g) for g in ROOF_COUNTS}
+        print(f"  t_hat({job}) g=1-4 with the collective term: "
+              f"{[max(terms[g]) for g in ROOF_COUNTS]!r}; without: "
+              f"{[max(terms[g][:2]) for g in ROOF_COUNTS]!r}")
+    choices = {r.job: r.g for r in res["torch"].records if r.kind == "run"}
+    out["sched"] = dict(fp=fp(res["torch"])[0], makespan=res["torch"].makespan,
+                        energy=res["torch"].total_energy, launches=n,
+                        guarded=kstats["score_reduce"]["guarded"], choices=choices)
+    print("  dryrun_ranks_h100 schedule: " + " ".join(f"{k}={v!r}"
+                                                     for k, v in out["sched"].items()))
+    return out
 
 
 def main() -> int:
@@ -4613,7 +5160,7 @@ def main() -> int:
     lap("16")
     print("== phase 17: tensor-parallel serving over ranks, serve_tp_dense_cards")
     torch.cuda.empty_cache()
-    _, tp_launches, tp_flash = phase_serve_tp(device, ROOT / "build" / "serve_tp")
+    tp, tp_launches, tp_flash = phase_serve_tp(device, ROOT / "build" / "serve_tp")
     print(f"  tensor-parallel serving launches (over the ranks): flash_attention={tp_launches}")
     for shape, n in tp_launches.items():
         check(n > 0, f"flash_attention ({shape}) was never launched on the ranks' heads")
@@ -4644,7 +5191,8 @@ def main() -> int:
     lap("18")
     print("== phase 19: tensor-parallel SSM and hybrid serving over ranks, serve_tp_ssm_cards")
     torch.cuda.empty_cache()
-    _, ssm_tp_launches, ssm_tp_flash, _ = phase_serve_tp_ssm(device, ROOT / "build" / "serve_tp")
+    ssm_tp, ssm_tp_launches, ssm_tp_flash, _ = phase_serve_tp_ssm(device,
+                                                                 ROOT / "build" / "serve_tp")
     print(f"  tensor-parallel SSM and hybrid serving launches (over the ranks): "
           f"flash_attention={ssm_tp_launches}")
     for shape, n in ssm_tp_launches.items():
@@ -4658,6 +5206,13 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
     lap("19")
+    print("== phase 20: the dry-run's collectives on one rank of a multi-chip mesh, "
+          "dryrun_ranks_h100")
+    phase_dryrun_ranks(device, path, phase20_cases(tp, ssm_tp, dp["train_tp_int8"]))
+    for k in kernels:  # the scheduler kernels' counts now include phase 20's
+        if k["name"] in path.launches:
+            k["launches"] = path.launches[k["name"]]["launches"]
+    lap("20")
     print(f"  phase_seconds={laps} total_s={time.perf_counter() - t_start:.1f}")
     print(smi())
     print(json.dumps({"kernels": kernels}))

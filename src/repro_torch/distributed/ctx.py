@@ -39,6 +39,33 @@ from repro_torch.distributed.meshes import all_reduce, gather_dim
 _tls = threading.local()
 
 
+# what the context managers below install in this thread
+_KEYS = ("rules", "mesh", "data_mesh")
+
+
+def snapshot() -> tuple:
+    """The contexts installed in this thread (the sharding rules, the
+    mesh, the data mesh), for :func:`installed` to put back in another:
+    the backward pass of a card's tensors runs in autograd's own thread,
+    and recomputes a checkpointed forward there (``models/model.py``,
+    ``_remat``)."""
+    return tuple(getattr(_tls, k, None) for k in _KEYS)
+
+
+@contextlib.contextmanager
+def installed(snap: tuple):
+    """The contexts of :func:`snapshot` ``snap`` installed in this thread
+    while entered."""
+    old = snapshot()
+    for k, v in zip(_KEYS, snap):
+        setattr(_tls, k, v)
+    try:
+        yield
+    finally:
+        for k, v in zip(_KEYS, old):
+            setattr(_tls, k, v)
+
+
 def current_rules() -> Optional[Dict[str, object]]:
     """The rule table installed by the innermost ``sharding_rules``, or
     None outside one."""

@@ -35,12 +35,15 @@ runs one SPMD program over each.  Here:
     the ranks a job will start (``train/loop.py``: one process per unit).
 * an :class:`AbstractMesh` holds shape and axis names only
   (``compat.abstract_mesh``'s counterpart; ``launch/mesh.py``'s
-  production meshes).
+  production meshes).  :func:`rank_view` gives, in one process, the mesh
+  one rank of it would hold, over a fake process group (the dry-run's
+  count of one rank's collectives).
 
 Jobs on disjoint units of one card share its SMs and memory.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from dataclasses import dataclass
@@ -365,6 +368,21 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], devices=None, *,
     arr = np.empty(len(devices), dtype=object)
     arr[:] = list(devices)
     return Mesh(arr.reshape(tuple(shape)), tuple(axes))
+
+
+@contextlib.contextmanager
+def rank_view(mesh: AbstractMesh, device, rank: int = 0):
+    """The :class:`Mesh` that rank ``rank`` of a job over ``mesh``'s shape
+    holds, built in this process over a fake process group of as many
+    ranks (``procs.fake_world``): its group, data group and model group
+    made as a worker makes them, its indices, and ``device`` (where the
+    caller's fake tensors lie) as its device.  ``NamedSharding.place``
+    then gives the rank's shares, and the collectives of its step are
+    dispatched and move nothing.  The fake group lasts while entered."""
+    n = math.prod(mesh.shape.values())
+    us = [LogicalDevice(i, resolve_device(device)) for i in range(n)]
+    with procs.fake_world(us, rank):
+        yield make_mesh(tuple(mesh.shape.values()), mesh.axis_names, devices=us)
 
 
 def carve_submesh(

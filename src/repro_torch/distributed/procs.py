@@ -17,6 +17,10 @@ A worker that raises fails the whole job: the others are stopped and
 ``timeout``: each collective (the process group's timeout) and the job as
 a whole.
 
+:func:`fake_world` makes this process one rank of a job over a fake
+process group, where collectives are dispatched but move nothing: the
+dry-run counts one rank's collectives that way.
+
 Inside a worker, :func:`current` gives the :class:`World` it belongs to,
 which ``distributed/meshes.py`` reads to build meshes over ranks.  A rank
 holds one unit of a mesh: where the mesh's ``model`` axis is longer than
@@ -26,6 +30,7 @@ group and its data group.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue
@@ -89,6 +94,32 @@ _GROUPS: Dict[Tuple[int, ...], Any] = {}
 def current() -> Optional[World]:
     """The :class:`World` of this worker process, or None outside one."""
     return _WORLD
+
+
+@contextlib.contextmanager
+def fake_world(units: Sequence[Any], rank: int = 0):
+    """This process as rank ``rank`` of a job whose ranks hold ``units``,
+    over a fake process group (``torch.testing``'s ``"fake"`` backend):
+    meshes built over ``units`` are meshes over ranks, with their groups
+    made by ``new_group`` as in a worker, and their collectives are
+    dispatched (a ``TorchDispatchMode`` sees them) but move nothing.  For
+    counting one rank's step on fake tensors (``launch/dryrun.py``).  The
+    fake group is destroyed on the way out; raises where a process group
+    is already initialised or this is a worker of a job."""
+    global _WORLD
+    if dist.is_initialized() or _WORLD is not None:
+        raise RuntimeError("a process group is already initialised in this process: "
+                           "a fake one would replace it")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=len(units))
+    try:
+        _WORLD = World(rank, tuple(units), "fake")
+        yield _WORLD
+    finally:
+        _WORLD = None
+        _GROUPS.clear()
+        dist.destroy_process_group()
 
 
 def backend_for(devices: Sequence[torch.device], backend: Optional[str] = None) -> str:

@@ -23,8 +23,16 @@ A step runs the global batch on one device (``distributed/meshes.py``),
 so it cannot be partitioned as XLA partitions it: FLOPs, bytes and
 transcendentals are the global counts split evenly over the mesh's chips
 (``"split": "even"``), and temp bytes the counted peak less the
-arguments, split the same way.  No collective is dispatched there, so a
-record of more than one chip says ``"coll_counted": false``.
+arguments, split the same way.  No collective is dispatched there.  On a
+mesh of more than one chip the step is counted a second time as rank 0
+of the mesh runs it (``meshes.rank_view``: the rank's groups over a fake
+process group): its shares of the batch, the parameters, the optimizer
+state (int8 codes and residuals in the reference's layout) and, for
+decode, the cache the port's ``init_cache`` allocates under the mesh (the
+rank's KV and SSM heads).  That count gives the record's collectives
+(``coll_bytes``, ``coll_<kind>``, ``counts_full``) and
+``"coll_counted": true``; the 0-layer and 1-period variants are counted
+both ways, so the collectives extrapolate as FLOPs do.
 
 Runs on the card's program (fake ``cuda`` tensors; without a card it
 exits 2) unless ``--device cpu`` is given.
@@ -52,7 +60,7 @@ from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.ctx import mesh_context, sharding_rules
-from repro_torch.distributed.meshes import P
+from repro_torch.distributed.meshes import NamedSharding, P, rank_view
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import Runtime, build_model
 from repro_torch.optim import AdamW, AdamWConfig
@@ -139,12 +147,15 @@ class Trace:
     """One counted step: ``costs`` are ``count_costs``' global counts,
     ``memory`` the per-device argument / alias / output bytes from the
     specs, ``arg_bytes`` the global arguments' bytes (live from the start
-    of the count)."""
+    of the count), ``rank_costs`` the count of rank 0's step where the
+    mesh has more than one chip."""
 
     costs: Dict[str, Any]
     memory: Dict[str, int]
     arg_bytes: int
     seconds: float
+    # rank 0's count on a mesh of more than one chip (``_trace_rank``)
+    rank_costs: Optional[Dict[str, Any]] = None
 
 
 def trace_cell(
@@ -162,7 +173,9 @@ def trace_cell(
 ) -> Trace:
     """Run one (cfg × cell) step once on fake tensors of ``device`` under
     the counter; the reference's ``lower_cell``.  Parameters, state,
-    batch and cache are fake: nothing is allocated on the device."""
+    batch and cache are fake: nothing is allocated on the device.  Where
+    ``mesh`` has more than one chip, rank 0's step of the mesh is counted
+    too (``Trace.rank_costs``)."""
     if rt.attn_impl == "pallas":
         raise ValueError(
             'the dry-run counts the plain routes; attn_impl="pallas" launches '
@@ -174,8 +187,8 @@ def trace_cell(
     batch, batch_specs = input_specs(cfg, cell, mesh)
     donated = None  # the argument whose buffers the step's outputs reuse
 
+    opt = AdamW(AdamWConfig(state_dtype=opt_dtype, master_weights=zero))
     if cell.kind == "train":
-        opt = AdamW(AdamWConfig(state_dtype=opt_dtype, master_weights=zero))
         step = make_train_step(model, opt, WarmupCosine(peak_lr=lr_peak), compress=compress,
                                grad_accum=grad_accum)
         state = eval_shape(lambda: init_state(model, opt, 0, compress=compress, device="cpu"))
@@ -235,7 +248,65 @@ def trace_cell(
         "output_bytes": shard_bytes(outs, out_specs, mesh),
         "alias_bytes": shard_bytes(args[donated], specs[donated], mesh) if donated else 0,
     }
-    return Trace(costs=costs, memory=memory, arg_bytes=arg_bytes, seconds=seconds)
+    rank_costs = None
+    if math.prod(mesh.shape.values()) > 1:
+        t0 = time.perf_counter()
+        rank_costs = _trace_rank(model, cell, mesh, rules, specs, args, opt=opt, zero=zero,
+                                 compress=compress, grad_accum=grad_accum, lr_peak=lr_peak,
+                                 device=dev)
+        seconds += time.perf_counter() - t0
+    return Trace(costs=costs, memory=memory, arg_bytes=arg_bytes, seconds=seconds,
+                 rank_costs=rank_costs)
+
+
+def _trace_rank(model, cell: ShapeCell, mesh, rules, specs, args, *, opt, zero: bool,
+                compress: bool, grad_accum: int, lr_peak: float, device) -> Dict[str, Any]:
+    """``count_costs`` of rank 0's step of ``mesh``: the arguments
+    (``args``, meta tensors under ``specs``) placed as that rank holds them
+    and the step built over its mesh (``meshes.rank_view``), as the
+    training and serving paths build it across ranks.  Decode takes the
+    cache ``init_cache`` allocates under the rank's mesh, for its share
+    of the batch."""
+    mode = RA.fake_mode()
+    with rank_view(mesh, device) as rm:
+
+        def placed(spec, t):
+            return NamedSharding(rm, spec).place(
+                torch.empty(t.shape, dtype=t.dtype, device=device))
+
+        with mode:
+            if cell.kind == "train":
+                state = tree_map(placed, specs["state"], args["state"])
+                batch = tree_map(placed, specs["batch"], args["batch"])
+            else:
+                params = tree_map(placed, specs["params"], args["params"])
+                batch = tree_map(placed, specs["batch"], args["batch"]) \
+                    if cell.kind == "prefill" else None
+                if cell.kind == "decode":
+                    token = placed(specs["token"], args["token"])
+                    cache = model.init_cache(token.shape[0], cell.seq_len, device=device,
+                                             mesh=rm)
+        if cell.kind == "train":
+            pspecs = specs["state"]["params"]
+            gspecs = pspecs
+            if zero:
+                gspecs = tree_map(lambda sp, leaf: shd.zero_extend(sp, tuple(leaf.shape), mesh),
+                                  pspecs, args["state"]["params"])
+            step = make_train_step(model, opt, WarmupCosine(peak_lr=lr_peak), compress=compress,
+                                   grad_accum=grad_accum, grad_shardings=shd.named(rm, gspecs),
+                                   opt_shardings=shd.named(rm, specs["state"]["opt"]))
+            run, fake = (lambda a: step(a["state"], a["batch"])), {"state": state, "batch": batch}
+        elif cell.kind == "prefill":
+            prefill = make_prefill(model, rm)
+            run, fake = (lambda a: prefill(a["params"], a["batch"])), {"params": params,
+                                                                       "batch": batch}
+        else:
+            decode = make_decode_step(model, rm)
+            run = (lambda a: decode(a["params"], a["cache"], a["token"], cell.seq_len - 1))
+            fake = {"params": params, "cache": cache, "token": token}
+        with sharding_rules(rules):
+            costs, _ = RA.count_costs(run, fake, mode=mode)
+    return costs
 
 
 # ---------------------------------------------------------------------------
@@ -244,9 +315,14 @@ def trace_cell(
 
 
 def _costs_of(trace: Trace, chips: int) -> Dict[str, Any]:
+    """Per-device costs: FLOPs, bytes and transcendentals the global
+    count's even split; the collectives rank 0's, where it was counted."""
     cs = {k: v for k, v in trace.costs.items() if k != "peak_bytes"}
     for k in ("flops", "bytes", "transcendentals"):
         cs[k] = cs[k] / chips
+    if trace.rank_costs is not None:
+        cs.update({k: v for k, v in trace.rank_costs.items()
+                   if k.startswith("coll_") or k == "_counts"})
     return cs
 
 
@@ -305,7 +381,7 @@ def dryrun_cell(
         "window_slice": rt.decode_window_slice, "moe_impl": rt.moe_impl,
     }
     result["split"] = "even"
-    result["coll_counted"] = chips == 1
+    result["coll_counted"] = True  # none on one chip; rank 0's on more
 
     def trace(c):
         return trace_cell(c, cell, mesh, rt, opt_dtype=opt_dtype, zero=zero,

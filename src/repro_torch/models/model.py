@@ -64,8 +64,10 @@ from repro_torch.distributed.ctx import (
     current_mesh,
     enter_model,
     gather_model,
+    installed,
     leave_model,
     model_rank,
+    snapshot,
     split_share,
 )
 from repro_torch.models import moe as moe_mod
@@ -117,7 +119,10 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _remat(fn, mode: str):
     """``fn`` recomputed in the backward pass (``jax.checkpoint``); the
-    model draws no random numbers, so no RNG state is kept."""
+    model draws no random numbers, so no RNG state is kept.  The
+    recomputation runs under the contexts the forward ran under
+    (``distributed.ctx.snapshot``): for a card's tensors it runs in
+    autograd's own thread, which has none of this thread's."""
     if mode == "none" or not torch.is_grad_enabled():
         return fn
     kw = dict(use_reentrant=False, preserve_rng_state=False)
@@ -125,7 +130,13 @@ def _remat(fn, mode: str):
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
     elif mode != "full":
         raise ValueError(f"unknown remat mode {mode!r}")
-    return functools.partial(checkpoint, fn, **kw)
+    snap = snapshot()
+
+    def under(*args):
+        with installed(snap):
+            return fn(*args)
+
+    return functools.partial(checkpoint, under, **kw)
 
 
 # ``_traverse`` unbinds each stacked ``(L, ...)`` leaf once a pass, so the
@@ -789,7 +800,7 @@ class Model:
         Megatron layout), else all of them."""
         cfg = self.cfg
         m = 1 if mesh is None or mesh.model_group is None else mesh.n_model
-        if m == 1 or cfg.num_heads % m:
+        if m == 1 or not cfg.uses_attention or cfg.num_heads % m:
             return cfg.num_kv_heads
         return max(cfg.num_heads // m // (cfg.num_heads // cfg.num_kv_heads), 1)
 

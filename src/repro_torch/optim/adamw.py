@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.meshes import gather_dim
 from repro_torch.tree import leaves, tree_map, tree_pick
 
 BLOCK = 256
@@ -69,6 +70,15 @@ def _splits_alike(s, ms, shape) -> bool:
     if d is None:
         return q is None and sc is None
     return q == d and sc == d and (d < len(shape) - 1 or shape[-1] % BLOCK == 0)
+
+
+def _whole_codes(x: torch.Tensor, mesh) -> Dict[str, torch.Tensor]:
+    """The int8 codes of the whole leaf whose last dimension is split over
+    ``mesh``'s model group, from this rank's columns ``x``: the columns
+    gathered over the group and quantized whole, as the blocks of 256 run
+    across the ranks' columns.  Every rank of the group gets the same
+    codes."""
+    return _q8(gather_dim(x, x.dim() - 1, mesh.model_group, mesh.n_model))
 
 
 # ---------------------------------------------------------------------------
@@ -146,8 +156,13 @@ class AdamW:
         too: the update and its all-gathers run over the data group on the
         model-local leaves, and the clip norm sums each leaf's squares over
         the model group where the specs split it and counts it once where
-        they do not.  Int8 moments of a leaf split over ``model`` (whose
-        codes the specs keep whole along it) raise."""
+        they do not.  Int8 moments follow the reference's state layout: a
+        leaf split over ``model`` along a leading dimension (``wo``, a
+        vocab-parallel embedding, experts split over E) has its codes split
+        along it too and updates its rows locally; one split along its last
+        dimension (``wq``, an FFN's ``gate``/``up``) has codes whole along
+        ``model``, the same on every rank of the group
+        (``_update_columns``)."""
         cfg = self.cfg
         mesh = None if grad_shardings is None else leaves(grad_shardings)[0].mesh
         if mesh is not None and mesh.group is None:
@@ -176,7 +191,7 @@ class AdamW:
         use_master = cfg.master_weights and "master" in state
         masters = state.get("master", params)
 
-        def upd(p, g, m_enc, v_enc, master):
+        def upd(p, g, m_enc, v_enc, master, encode=True):
             g = g.to(torch.float32) * scale
             m = self._decode(m_enc, p.shape)
             v = self._decode(v_enc, p.shape)
@@ -189,23 +204,25 @@ class AdamW:
                 step = step + cfg.weight_decay * p32
             new_master = p32 - lr * step
             new_p = new_master.to(p.dtype)
-            return new_p, self._encode(m), self._encode(v), (new_master if use_master else None)
+            if encode:
+                m, v = self._encode(m), self._encode(v)
+            return new_p, m, v, (new_master if use_master else None)
 
         if mesh is None:
             out = tree_map(upd, params, grads, state["m"], state["v"], masters)
         else:
             def upd_share(s, p, g, m_enc, v_enc, master, ms, vs):
-                if isinstance(ms, dict) and s.mdim is not None:
-                    raise NotImplementedError(
-                        "int8 moments of a leaf split over a model axis across ranks")
-                # the leaves are model-local: only their data split is left
+                master = master if use_master else None
+                if isinstance(ms, dict) and s.mdim is not None and s.mdim == p.dim() - 1:
+                    return self._update_columns(upd, s, p, g, m_enc, v_enc, master, ms, vs)
+                # the leaves (and a row-split leaf's codes) are model-local:
+                # only their data split is left
                 s = s.data_part
                 if isinstance(ms, dict):
                     ms = tree_map(lambda sh: sh.data_part, ms)
                     vs = tree_map(lambda sh: sh.data_part, vs)
                 if _splits_alike(s, ms, p.shape):
-                    new_p, m, v, nm = upd(s.place(p), g, m_enc, v_enc,
-                                          master if use_master else None)
+                    new_p, m, v, nm = upd(s.place(p), g, m_enc, v_enc, master)
                     return s.gather(new_p), m, v, nm
                 # int8 codes split otherwise than the leaf: update it whole
                 whole = {k: tree_map(lambda sh, t: sh.gather(t), sp, enc)
@@ -222,6 +239,47 @@ class AdamW:
         if use_master:
             new_state["master"] = tree_pick(out, 3)
         return tree_pick(out, 0), new_state, {"grad_norm": gnorm}
+
+    @staticmethod
+    def _update_columns(upd, s, p, g, m_enc, v_enc, master, ms, vs):
+        """``update`` of a leaf whose last dimension is split over the
+        model group (``s.mdim``), with int8 moments, whose codes the specs
+        keep whole along ``model`` (the reference's ``opt_state_specs``).
+        The rank updates its own columns: from its blocks of the codes
+        where its width is whole blocks (its columns then start at a block
+        boundary too), else from the whole moments decoded; the new
+        moments' codes are then made whole again on every rank of the
+        group (:func:`_whole_codes`).  The data split is handled as in
+        ``update``: locally where the codes split over ``data`` as the
+        leaf does, else from the codes gathered over the data group."""
+        mesh = s.mesh
+        k, i = p.shape[-1], mesh.model_index
+        aligned = k % BLOCK == 0
+        s = s.data_part
+
+        def own(enc):
+            # the rank's columns of a moment: its blocks, or the decoded columns
+            if aligned:
+                return {key: t.narrow(-2, i * (k // BLOCK), k // BLOCK) for key, t in enc.items()}
+            lead = enc["q"].shape[:-2]
+            return _dq8(enc, (*lead, mesh.n_model * k)).narrow(-1, i * k, k)
+
+        def whole(x):
+            if aligned:  # codes of whole blocks: join them along the block axis
+                return {key: gather_dim(t, t.dim() - 2, mesh.model_group, mesh.n_model)
+                        for key, t in _q8(x).items()}
+            return _whole_codes(x, mesh)
+
+        if _splits_alike(s, ms, p.shape):
+            new_p, m, v, nm = upd(s.place(p), g, own(m_enc), own(v_enc), master, encode=False)
+            return s.gather(new_p), whole(m), whole(v), nm
+        m_enc, v_enc = (tree_map(lambda sh, t: sh.gather(t), sp, enc)
+                        for sp, enc in ((ms, m_enc), (vs, v_enc)))
+        new_p, m, v, nm = upd(p, s.gather(g), own(m_enc), own(v_enc),
+                              None if master is None else s.gather(master), encode=False)
+        return (new_p, tree_map(lambda sh, t: sh.place(t), ms, whole(m)),
+                tree_map(lambda sh, t: sh.place(t), vs, whole(v)),
+                None if nm is None else s.place(nm))
 
     def state_bytes_per_param(self) -> float:
         return {"float32": 8.0, "bfloat16": 4.0, "int8": 2.0 + 8.0 / BLOCK}[

@@ -12,6 +12,10 @@ and feeds ``g_q`` to AdamW.  On one process there is no reduction to
 narrow: the transform runs for its numbers, as the reference's does on
 one device.  Over ranks the step compresses the gradients' mean, whole,
 as the reference compresses its reduced gradients (``train/step.py``).
+Where the ``model`` axis spans ranks, a leaf split over it along a leading
+dimension holds whole blocks on each rank and is compressed there; one
+split along its last dimension is compressed as the whole leaf's blocks
+run, across the ranks' columns (:func:`_quantize_columns`).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.meshes import gather_dim
 from repro_torch.tree import tree_map, tree_pick
 
 BLOCK = 256
@@ -46,14 +51,36 @@ def init_residuals(params) -> dict:
                     params)
 
 
-def compress_grads(grads, residuals) -> Tuple[dict, dict]:
-    """Returns (quantized grads, new residuals)."""
+def _quantize_columns(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The round-trip of this rank's columns ``x`` of a leaf whose last
+    dimension is split over ``mesh``'s model group, in the whole leaf's
+    blocks: local where the rank's width is whole blocks (its columns then
+    start at a block boundary), else gathered over the group, quantized
+    whole and cut back to the rank's columns."""
+    k = x.shape[-1]
+    if k % BLOCK == 0:
+        return _quantize(x)
+    whole = gather_dim(x, x.dim() - 1, mesh.model_group, mesh.n_model)
+    return _quantize(whole).narrow(-1, mesh.model_index * k, k)
 
-    def one(g, r):
+
+def compress_grads(grads, residuals, shardings=None) -> Tuple[dict, dict]:
+    """Returns (quantized grads, new residuals).  ``shardings``: the
+    gradients' ``NamedSharding`` tree where each leaf is this rank's share
+    along ``model`` (tensor parallelism over ranks); a leaf split along its
+    last dimension is then quantized in the whole leaf's blocks."""
+
+    def one(g, r, s=None):
         g = g.to(torch.float32) + r
-        q = _quantize(g)
+        if s is not None and s.mdim is not None and s.mdim == g.dim() - 1:
+            q = _quantize_columns(g, s.mesh)
+        else:
+            q = _quantize(g)
         return q, g - q
 
-    out = tree_map(one, grads, residuals)
+    if shardings is None:
+        out = tree_map(one, grads, residuals)
+    else:
+        out = tree_map(lambda s, g, r: one(g, r, s), shardings, grads, residuals)
     return tree_pick(out, 0), tree_pick(out, 1)
 

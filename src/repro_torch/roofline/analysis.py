@@ -21,8 +21,13 @@ and nothing is allocated.  It counts
 * ``transcendentals``: elements through exp / log / tanh / sigmoid /
   rsqrt / erf / sin / cos (and the ops built on them);
 * ``coll_bytes``, ``coll_<kind>`` and ``_counts``: result bytes and counts
-  of the dispatched ``_c10d_functional`` collectives, by kind (0 on one
-  card, where none is dispatched);
+  of the dispatched collectives, by kind: the functional ones
+  (``_c10d_functional``) and the in-place ``torch.distributed`` calls the
+  port makes (``c10d.allreduce_``, ``_allgather_base_``, ...), an in-place
+  all-reduce's result being its input, counted once, as XLA counts a
+  collective's result shape.  None is dispatched on one card; a rank of a
+  mesh over a fake process group dispatches its own
+  (``launch/dryrun.py``);
 * ``peak_bytes``: the peak of live storages, the arguments included,
   counted once per storage however many views share it.
 
@@ -89,7 +94,24 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+# the in-place ``c10d`` ops ``torch.distributed``'s calls dispatch -> kind
+_C10D_OPS = {
+    "allreduce_": "all-reduce",
+    "allreduce_coalesced_": "all-reduce",
+    "_allgather_base_": "all-gather",
+    "allgather_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "alltoall_base_": "all-to-all",
+    "alltoall_": "all-to-all",
+}
+
+
 def _collective_kind(func) -> str:
+    if func.namespace == "c10d":
+        return _C10D_OPS.get(func.__name__.split(".")[0], "")
     if func.namespace != "_c10d_functional":
         return ""
     name = func.__name__
@@ -142,12 +164,14 @@ class CostCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         results = _tensors(out)
+        kind = _collective_kind(func)
+        if kind and not results:  # ``alltoall_base_`` returns its work only
+            results = _tensors(args[:1])
         if not results:  # a metadata query (``prim.device``, sizes)
             return out
         packet = func._overloadpacket
         if packet in self._flop_registry:
             self.flops += int(self._flop_registry[packet](*args, **kwargs, out_val=out))
-        kind = _collective_kind(func)
         if kind:
             self.coll[kind] += sum(map(_nbytes, results))
             self.coll_counts[kind] += 1

@@ -118,13 +118,16 @@ def make_train_step(
     pass, and the SSM's gated norm sums its mean square's gradient over
     it (``distributed.ctx.model_sum``).  The reduction above then runs
     over the data group, and the loss and metrics are averaged over it.
-    Gradient compression and int8 moments of a leaf split over ``model``
-    raise there: they have no tensor-parallel layout yet."""
+    With ``compress`` each leaf is compressed in the whole leaf's blocks of
+    256 along its last dimension, as the reference compresses it: a leaf
+    split over ``model`` along a leading dimension on its rank, one split
+    along its last dimension across the ranks' columns
+    (``optim.compress``); its residual is the rank's share, under the
+    parameters' specs.  Int8 moments keep the reference's layout too
+    (``AdamW.update``)."""
     mesh = None if grad_shardings is None else leaves(grad_shardings)[0].mesh
     ranked = mesh is not None and mesh.group is not None
     tp = mesh if ranked and mesh.model_group is not None else None
-    if tp is not None and compress:
-        raise NotImplementedError("gradient compression with the model axis across ranks")
     whole = (tree_map(lambda s: NamedSharding(s.mesh, P()), grad_shardings)
              if ranked and compress else grad_shardings)
 
@@ -165,7 +168,8 @@ def make_train_step(
 
         new_state = dict(state)
         if compress:
-            grads, new_state["residuals"] = compress_grads(grads, state["residuals"])
+            grads, new_state["residuals"] = compress_grads(
+                grads, state["residuals"], grad_shardings if tp is not None else None)
             if ranked:
                 grads = tree_map(lambda s, g: s.data_part.place(g), grad_shardings, grads)
         lr = schedule(state["step"])

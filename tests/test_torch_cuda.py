@@ -528,3 +528,58 @@ def test_tensor_parallel_moe_prefill_on_the_card_matches_one_process(device, tmp
     experts and half the shared expert's columns, one all-reduce a MoE
     layer."""
     tp_prefill_on_the_card("qwen2-moe-a2.7b", device, tmp_path)
+
+
+def test_rank_trace_on_the_card_allocates_nothing(device):
+    """The dry-run of reduced granite-8b (padded to model 4) on a (2, 4)
+    mesh counts rank 0's step over a fake process group on fake tensors
+    of the card: its collectives equal the same count on the CPU's fake
+    tensors, kind by kind, and the card's memory is left as it was."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.meshes import AbstractMesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import Runtime
+    from repro_torch.roofline import analysis as RA
+
+    cfg, _ = shd.shardable(reduced(get_config("granite-8b")), 4)
+    mesh, rt = AbstractMesh((2, 4), ("data", "model")), Runtime(remat="full")
+    with RA.fake_mode():
+        torch.empty(0, device=device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for kind, B in (("prefill", 4), ("train", 8), ("decode", 8)):
+        cell = ShapeCell("t", kind, 64, B)
+        got = D.trace_cell(cfg, cell, mesh, rt, grad_accum=1, device=device).rank_costs
+        want = D.trace_cell(cfg, cell, mesh, rt, grad_accum=1, device="cpu").rank_costs
+        assert got["_counts"] == want["_counts"] and got["coll_bytes"] == want["coll_bytes"]
+        assert got["coll_bytes"] > 0, kind
+    assert torch.cuda.memory_allocated() == before
+    assert torch.cuda.max_memory_allocated() == before
+    assert not torch.distributed.is_initialized()
+
+
+def test_int8_moments_and_compression_over_ranks_of_the_card(device, tmp_path):
+    """Reduced granite-8b at model_par 2 over 2 gloo ranks of the card,
+    int8 moments and compression, one step from the one-process warm
+    state on the card: loss and grad norm within rel. 1e-5 of one process
+    on the card, every code at most one off."""
+    import torch_tp_optim_ranks as OR
+    from repro_torch.distributed import procs
+    from repro_torch.distributed.meshes import LogicalDevice
+
+    start = OR.warm_start("granite-8b", tmp_path, device)
+    one = OR.one_process("granite-8b", "both", start, tmp_path, device)
+    got = procs.spawn(OR.ranks, ({("granite-8b", "both"): (start, one["state"])}, tmp_path),
+                      units=[LogicalDevice(i, device) for i in range(2)],
+                      jobdir=str(tmp_path / "j"), backend="gloo", timeout=300)
+    for r in got:
+        res = r[("granite-8b", "both")]
+        for k in ("loss", "grad_norm"):
+            assert abs(res[k] - one[k]) <= 1e-5 * abs(one[k]), (k, res[k], one[k])
+        for k, w in one["state"].items():
+            if k.endswith("/q"):
+                d = np.abs(res["state"][k].astype(np.int32) - w.astype(np.int32))
+                assert d.max() <= 1, k
