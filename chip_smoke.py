@@ -83,7 +83,8 @@ runs with a unit per card, its decisions replayed through
 AdamW moments and gradient compression, its ``model`` axis across the
 ranks (``train_tp_int8_granite_8b``: on one card 4 of its 36 layers in
 float32 over 2 gloo ranks of the card, held to one process; on four
-cards 24 layers in bf16 over NCCL).  Tensor-parallel serving (phase 17,
+cards all 36 layers in bf16 over NCCL), each step donated: the new state
+written into the given one's tensors, as the ``Trainer`` does.  Tensor-parallel serving (phase 17,
 ``serve_tp_dense_cards``): granite-8b at full width and depth over 2
 ranks whose ``model`` axis spans them (2 gloo ranks of one card; on
 several cards, a card each over NCCL, then qwen3-32b over 4), each rank
@@ -2833,7 +2834,7 @@ def train_run(device, workdir, *, arch=TRAIN_ARCH, B=TRAIN_B, S=TRAIN_S, steps=T
     data = SyntheticLM(cfg, B, S, DataConfig(seed=0))
     batch = {k: torch.from_numpy(v).to(device) for k, v in data.global_batch(steps).items()}
     sched = WarmupCosine(peak_lr=args.lr, warmup_steps=max(steps // 10, 1), decay_steps=steps)
-    step = make_train_step(model, opt, sched)
+    step = make_train_step(model, opt, sched, donate=True)  # as the Trainer's
     if device.type == "cuda":
         def one():
             new, met = step(restored, batch)
@@ -3624,14 +3625,10 @@ def phase_train_dp(device, workdir, cards=None, cosched_steps=6):
 
 # granite-8b at full width: on one card TPI_LAYERS of its 36 layers in
 # float32 over 2 gloo ranks of the card, held to one process; on four
-# cards TPI_FOUR_LAYERS in bf16 over NCCL, a card a rank
+# cards all 36 in bf16 over NCCL, a card a rank (the donated step holds
+# one state: a layer's share at (1, 4) is 0.87 GB of bf16 parameters,
+# master copies, residuals and int8 codes)
 TPI_ARCH, TPI_LAYERS, TPI_B, TPI_S, TPI_STEPS, TPI_LR = "granite-8b", 4, 4, 2048, 6, 1e-4
-# the four-card leg's depth: a train step returns a new state beside the
-# one it was given, so at the update a rank holds both (a layer's share
-# at (1, 4) is 0.87 GB of bf16 parameters, master copies, residuals and
-# int8 codes, twice over): at 36 layers the update ran out of a card's
-# 79 GiB, at 24 about 62 GiB
-TPI_FOUR_LAYERS = 24
 TPI_PARAM_TOL = 1e-4  # each parameter's |Δ| against one process, of its leaf's max |p|
 TPI_DRYRUN_KW = dict(opt_dtype="int8", compress=True)  # the leg's optimizer in the dry-run
 
@@ -3643,9 +3640,10 @@ def tpi_cfg(dtype, layers=None):
 
 def tpi_parts(cfg, mesh):
     """The leg's model (remat full), optimizer (int8 moments, master
-    weights), and its train step with compression: over ``mesh``'s ranks
-    with the shardings ``Trainer`` gives them (returned too), or in one
-    process where ``mesh`` is None."""
+    weights), and its train step with compression, donated as the
+    ``Trainer``'s: over ``mesh``'s ranks with the shardings ``Trainer``
+    gives them (returned too), or in one process where ``mesh`` is
+    None."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import Runtime, build_model
     from repro_torch.optim import AdamW, AdamWConfig, WarmupCosine
@@ -3657,7 +3655,8 @@ def tpi_parts(cfg, mesh):
     sched = WarmupCosine(peak_lr=TPI_LR, warmup_steps=1, decay_steps=100)
     like = eval_shape(lambda: init_state(model, opt, 0, compress=True, device="cpu"))
     if mesh is None:
-        return model, opt, make_train_step(model, opt, sched, compress=True), like, None
+        return (model, opt, make_train_step(model, opt, sched, compress=True, donate=True),
+                like, None)
     pspecs = shd.param_specs(cfg, mesh, like["params"])
     specs = {"params": pspecs, "opt": shd.opt_state_specs(cfg, mesh, like["opt"]),
              "step": shd.P(), "residuals": pspecs}
@@ -3666,7 +3665,7 @@ def tpi_parts(cfg, mesh):
     shardings = shd.named(mesh, specs)
     step = make_train_step(model, opt, sched, compress=True,
                            grad_shardings=shd.named(mesh, gspecs),
-                           opt_shardings=shardings["opt"])
+                           opt_shardings=shardings["opt"], donate=True)
     return model, opt, step, like, shardings
 
 
@@ -3738,11 +3737,11 @@ def tpi_batches(cfg, mesh, device, n):
 
 
 def tpi_one_process(device, cfg, want_path):
-    """The leg in one process on ``device``: its state and one step.  The
-    new parameters, codes, scales and residuals go to ``want_path`` (on
-    the host, for the ranks to hold their shares to); returns the loss,
-    grad norm, each leaf's largest magnitude, the step's seconds and the
-    peak memory."""
+    """The leg in one process on ``device``: its state and one donated
+    step.  The new parameters, codes, scales and residuals go to
+    ``want_path`` (on the host, for the ranks to hold their shares to);
+    returns the loss, grad norm, each leaf's largest magnitude, the step's
+    seconds and the peak memory."""
     import torch
     from repro_torch.tree import leaves_with_paths
 
@@ -3754,7 +3753,7 @@ def tpi_one_process(device, cfg, want_path):
     batch = tpi_batches(cfg, None, device, 1)[0]
     sync(device)
     t0 = time.perf_counter()
-    new, met = step(state, batch)
+    new, met = step(state, batch)  # ``new`` is ``state``, updated in place
     loss = float(met["loss"])
     sync(device)
     m = {"loss": loss, "grad_norm": float(met["grad_norm"]), "step_s": time.perf_counter() - t0}
@@ -3895,14 +3894,14 @@ def train_tp_int8(device, workdir, cards):
     compressed code flipped, no int8 code more than one off; the codes
     off by one and the flipped compressed codes, boundary flips, counted,
     at most 1e-3 of the codes; ``tpi_compare``), then TPI_STEPS steps in
-    all.  On four cards: TPI_FOUR_LAYERS of the 36 layers in bf16 over
-    NCCL at (1, 4), TPI_STEPS steps with finite losses; then
+    all.  On four cards: all 36 layers in bf16 over NCCL at (1, 4),
+    TPI_STEPS steps with finite losses; then
     ``launch.train --smoke --model-par 2 --opt-dtype int8
     --compress-grads`` through a recovery.  Each rank's s a step (median
     of steps 2 on), collective µs a step, peak memory, the bytes it holds
     and its moments' bytes against the reference's specs are printed.
     Returns the metrics, with rank 0's first step's collectives by kind
-    and the config, mesh and cell for phase 20."""
+    and the config, mesh, cell and the ranks' peaks for phase 20."""
     import torch
     from repro_torch.configs.base import ShapeCell
     from repro_torch.distributed import procs
@@ -3911,7 +3910,7 @@ def train_tp_int8(device, workdir, cards):
     cuda = device.type == "cuda"
     four = cuda and cards >= 4
     m = 4 if four else 2
-    cfg = tpi_cfg("bfloat16", TPI_FOUR_LAYERS) if four else tpi_cfg("float32", TPI_LAYERS)
+    cfg = tpi_cfg("bfloat16") if four else tpi_cfg("float32", TPI_LAYERS)
     out = {"ranks_n": m, "layers": cfg.num_layers, "dtype": cfg.dtype}
     want_path, maxes = None, None
     if not four:
@@ -3951,7 +3950,8 @@ def train_tp_int8(device, workdir, cards):
               f"train_tp_int8 rank {r['rank']} against one process: {v}")
     out["ranks"] = res
     out["phase20"] = dict(cfg=cfg, mesh=(1, m), tally=res[0]["step_coll"],
-                          cell=ShapeCell(f"train_b{TPI_B}s{TPI_S}", "train", TPI_S, TPI_B))
+                          cell=ShapeCell(f"train_b{TPI_B}s{TPI_S}", "train", TPI_S, TPI_B),
+                          peaks_gib=[r["peak_gib"] for r in res])
     if four:
         out["launch_train"] = ssm_train_cards(
             device, workdir, TPI_ARCH, extra=("--opt-dtype", "int8", "--compress-grads"))
@@ -4790,11 +4790,7 @@ def phase20_cases(tp, ssm, leg):
     """Phase 20's cases from what the earlier phases ran: granite-8b's
     prefill and decode over TP_M ranks (phase 17); on several cards
     qwen3-32b's over phase 17's ranks and, on four, mamba2-2.7b's over 4
-    (phase 19); the training step of phase 16's int8 leg at its own
-    config, held to rank 0's tally, and the arch's whole config recorded
-    at the leg's mesh and cell."""
-    from repro_torch.configs import get_config
-
+    (phase 19); then phase 16's int8 leg's (``leg_cases``)."""
     cases = serve_case(TP_ARCH, TP_M, tp["ranks"], tp_cfg(TP_ARCH, "bfloat16"))
     if "qwen3_full" in tp:
         cases += serve_case(TP_BIG_ARCH, tp["qwen3_mp"],
@@ -4803,10 +4799,20 @@ def phase20_cases(tp, ssm, leg):
     arch = SSM_TP_ARCHS[0]
     if "mp4" in ssm.get(arch, {}):
         cases += serve_case(arch, 4, ssm[arch]["mp4"]["ranks"], tp_cfg(arch, "bfloat16"))
+    return cases + leg_cases(leg)
+
+
+def leg_cases(leg):
+    """Phase 20's cases of phase 16's int8 leg: its training step at its
+    own config, held to rank 0's tally and printed beside the ranks'
+    peaks, and the arch's whole config recorded at the leg's mesh and
+    cell."""
+    from repro_torch.configs import get_config
+
     p20 = leg["phase20"]
-    return cases + [
+    return [
         dict(arch=TPI_ARCH, cfg=p20["cfg"], cell=p20["cell"], mesh=p20["mesh"],
-             tally=p20["tally"], kw=TPI_DRYRUN_KW, record=False),
+             tally=p20["tally"], kw=TPI_DRYRUN_KW, record=False, peaks_gib=p20["peaks_gib"]),
         dict(arch=TPI_ARCH, cfg=get_config(TPI_ARCH), cell=p20["cell"], mesh=p20["mesh"],
              tally=None, kw=TPI_DRYRUN_KW, record=True)]
 
@@ -4840,8 +4846,10 @@ def phase_dryrun_ranks(device, path, cases):
     """Phase 20, cell ``dryrun_ranks_h100``: the dry-run of each of
     ``cases`` (dicts of ``arch``, the ``cfg`` a phase ran, its ``cell``,
     its ``mesh`` (1, m), rank 0's collectives by kind there (``tally``,
-    ``coll_of``), the trace's options ``kw`` and whether a record of the
-    arch's own config is made, ``record``): rank 0's step of the mesh
+    ``coll_of``), the trace's options ``kw``, whether a record of the
+    arch's own config is made, ``record``, and for a training step the
+    ranks' measured peaks, ``peaks_gib``, printed beside the trace's
+    ``hbm_per_device`` and rank 0's counted peak): rank 0's step of the mesh
     counted on fake tensors of the card (``launch.dryrun``'s rank trace)
     must dispatch exactly the calls and result bytes the phase's rank 0
     did, kind by kind; beside each, ``coll_bytes / H100.ici_bw`` and the
@@ -4879,8 +4887,9 @@ def phase_dryrun_ranks(device, path, cases):
             counts = rec["counts_full"]
             got = {k: rec["cost_full_module"][f"coll_{k}"] for k in RA.COLLECTIVE_KINDS}
         else:  # the phase ran another config (a cut, or unpadded): count that one
-            rc = dryrun_window(device, lambda: D.trace_cell(
-                cfg, cell, mesh, rt, grad_accum=1, device=device, **c["kw"]).rank_costs)
+            tr = dryrun_window(device, lambda: D.trace_cell(
+                cfg, cell, mesh, rt, grad_accum=1, device=device, **c["kw"]))
+            rc = tr.rank_costs
             counts = rc["_counts"]
             got = {k: rc[f"coll_{k}"] for k in RA.COLLECTIVE_KINDS}
         wall = time.perf_counter() - t0
@@ -4894,6 +4903,10 @@ def phase_dryrun_ranks(device, path, cases):
                    coll_over_ici_us=sum(got.values()) / H100.ici_bw * 1e6,
                    measured_collective_us=measured_us if c["tally"] is not None else None,
                    wall_s=wall)
+        if c.get("peaks_gib"):  # the leg's own step, traced above (no record)
+            row.update(measured_peak_gib_by_rank=c["peaks_gib"],
+                       hbm_per_device_gib=D.device_memory(tr, math.prod(c["mesh"]))[1] / 2 ** 30,
+                       rank_trace_peak_gib=rc["peak_bytes"] / 2 ** 30)
         print(f"  dryrun_ranks_h100 {name} ({cfg.num_layers} layers, {cfg.dtype}): "
               + " ".join(f"{k}={v!r}" for k, v in row.items() if k != "name"))
         check(not bad, f"dryrun_ranks_h100 {name}: the rank trace's (calls, bytes) differ from "

@@ -235,13 +235,18 @@ def all_reduce(t: torch.Tensor, group, n: Optional[int] = None) -> torch.Tensor:
     return t
 
 
-def gather_dim(t: torch.Tensor, d: int, group, n: int) -> torch.Tensor:
+def gather_dim(t: torch.Tensor, d: int, group, n: int, out=None) -> torch.Tensor:
     """The ``n`` ranks' shares ``t`` of ``group`` joined along dimension
-    ``d`` in rank order (all-gather)."""
+    ``d`` in rank order (all-gather); written into ``out`` where given,
+    straight from the collective where ``d`` is its leading dimension."""
     x = t.movedim(d, 0).contiguous()
-    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
-    _all_gather(out, x, group=group)
-    return out.movedim(0, d).contiguous()
+    if out is not None and d == 0 and out.is_contiguous():
+        _all_gather(out, x, group=group)
+        return out
+    whole = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    _all_gather(whole, x, group=group)
+    whole = whole.movedim(0, d).contiguous()
+    return whole if out is None else out.copy_(whole)
 
 
 @dataclass(frozen=True)
@@ -323,16 +328,17 @@ class NamedSharding:
             t = t.narrow(d, i * k, k)
         return t.to(mesh.device, copy=True, memory_format=torch.contiguous_format)
 
-    def gather(self, t: torch.Tensor) -> torch.Tensor:
+    def gather(self, t: torch.Tensor, out=None) -> torch.Tensor:
         """The whole leaf from the ranks' shares (all-gather over the data
         group, then the model group); ``t`` itself where it is not
-        split."""
+        split.  Written into ``out`` where given."""
         mesh = self.mesh
         if self.dim is not None:
-            t = gather_dim(t, self.dim, mesh.data_group, mesh.n_data)
+            t = gather_dim(t, self.dim, mesh.data_group, mesh.n_data,
+                           out=out if self.mdim is None else None)
         if self.mdim is not None:
-            t = gather_dim(t, self.mdim, mesh.model_group, mesh.n_model)
-        return t
+            t = gather_dim(t, self.mdim, mesh.model_group, mesh.n_model, out=out)
+        return t if out is None or t is out else out.copy_(t)
 
     def reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The data group's mean of its ranks' model-local leaves ``t``

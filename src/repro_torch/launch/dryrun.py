@@ -190,7 +190,7 @@ def trace_cell(
     opt = AdamW(AdamWConfig(state_dtype=opt_dtype, master_weights=zero))
     if cell.kind == "train":
         step = make_train_step(model, opt, WarmupCosine(peak_lr=lr_peak), compress=compress,
-                               grad_accum=grad_accum)
+                               grad_accum=grad_accum, donate=True)
         state = eval_shape(lambda: init_state(model, opt, 0, compress=compress, device="cpu"))
         pspecs = shd.param_specs(cfg, mesh, state["params"])
         state_specs = {"params": pspecs, "step": P(),
@@ -294,7 +294,8 @@ def _trace_rank(model, cell: ShapeCell, mesh, rules, specs, args, *, opt, zero: 
                                   pspecs, args["state"]["params"])
             step = make_train_step(model, opt, WarmupCosine(peak_lr=lr_peak), compress=compress,
                                    grad_accum=grad_accum, grad_shardings=shd.named(rm, gspecs),
-                                   opt_shardings=shd.named(rm, specs["state"]["opt"]))
+                                   opt_shardings=shd.named(rm, specs["state"]["opt"]),
+                                   donate=True)
             run, fake = (lambda a: step(a["state"], a["batch"])), {"state": state, "batch": batch}
         elif cell.kind == "prefill":
             prefill = make_prefill(model, rm)
@@ -324,6 +325,17 @@ def _costs_of(trace: Trace, chips: int) -> Dict[str, Any]:
         cs.update({k: v for k, v in trace.rank_costs.items()
                    if k.startswith("coll_") or k == "_counts"})
     return cs
+
+
+def device_memory(trace: Trace, chips: int) -> Tuple[Dict[str, int], int]:
+    """A trace's memory per device: its argument / alias / output bytes,
+    ``temp_bytes`` (the counted peak above the arguments, split evenly)
+    and, second, the HBM a device holds (their sum less the alias
+    bytes)."""
+    mem = dict(trace.memory)
+    mem["temp_bytes"] = int(max(trace.costs["peak_bytes"] - trace.arg_bytes, 0) / chips)
+    hbm = mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"] - mem["alias_bytes"]
+    return mem, int(hbm)
 
 
 def dryrun_cell(
@@ -391,13 +403,9 @@ def dryrun_cell(
     full = trace(cfg)
     result["trace_s_full"] = round(full.seconds, 2)
 
-    mem = dict(full.memory)
-    mem["temp_bytes"] = int(max(full.costs["peak_bytes"] - full.arg_bytes, 0) / chips)
+    mem, result["hbm_per_device"] = device_memory(full, chips)
     result["memory"] = mem
     result["peak_bytes_counted"] = int(full.costs["peak_bytes"])
-    result["hbm_per_device"] = int(
-        mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"] - mem["alias_bytes"]
-    )
     # The reference's first-principles HBM model (chip-independent):
     #   args (exact, from the specs -- params/opt/cache shards)
     # + remat carry stack  L x (microbatch tokens/chip) x d x 2B

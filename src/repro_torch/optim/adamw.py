@@ -34,9 +34,10 @@ BLOCK = 256
 # ---------------------------------------------------------------------------
 
 
-def _q8(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _q8(x: torch.Tensor, out=None) -> Dict[str, torch.Tensor]:
     """Blockwise int8 along the last axis only (the reference's layout:
-    leading dimensions keep their sharding)."""
+    leading dimensions keep their sharding); written into ``out``'s
+    ``q`` and ``scale`` where given."""
     last = x.shape[-1] if x.dim() else 1
     xb = x if x.dim() else x.reshape(1)
     pad = (-last) % BLOCK
@@ -45,8 +46,12 @@ def _q8(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     nb = xb.shape[-1] // BLOCK
     blocks = xb.reshape(*xb.shape[:-1], nb, BLOCK)
     scale = torch.amax(torch.abs(blocks), dim=-1, keepdim=True) / 127.0
-    q = torch.round(blocks / torch.clamp(scale, min=1e-12)).to(torch.int8)
-    return {"q": q, "scale": scale.to(torch.float32)}
+    q = (blocks / torch.clamp(scale, min=1e-12)).round_()
+    if out is None:
+        return {"q": q.to(torch.int8), "scale": scale.to(torch.float32)}
+    out["q"].copy_(q)
+    out["scale"].copy_(scale)
+    return out
 
 
 def _dq8(qs: Dict[str, torch.Tensor], shape) -> torch.Tensor:
@@ -70,6 +75,17 @@ def _splits_alike(s, ms, shape) -> bool:
     if d is None:
         return q is None and sc is None
     return q == d and sc == d and (d < len(shape) - 1 or shape[-1] % BLOCK == 0)
+
+
+def _land(dst, src):
+    """``src`` written into ``dst``'s storage (a tensor, or an int8
+    moment's ``{q, scale}``); returns ``dst``."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _land(dst[k], src[k])
+    elif src is not dst:
+        dst.copy_(src)
+    return dst
 
 
 def _whole_codes(x: torch.Tensor, mesh) -> Dict[str, torch.Tensor]:
@@ -104,11 +120,14 @@ class AdamW:
         self.cfg = cfg
 
     # -- state ----------------------------------------------------------
-    def _encode(self, x: torch.Tensor):
+    def _encode(self, x: torch.Tensor, out=None):
+        """``x`` in the moments' type, written into ``out`` where given."""
         sd = self.cfg.state_dtype
         if sd == "int8":
-            return _q8(x)
-        return x.to(torch.bfloat16 if sd == "bfloat16" else torch.float32)
+            return _q8(x, out)
+        if out is None:
+            return x.to(torch.bfloat16 if sd == "bfloat16" else torch.float32)
+        return _land(out, x)
 
     def _decode(self, enc, shape) -> torch.Tensor:
         if isinstance(enc, dict) and "q" in enc:
@@ -134,7 +153,13 @@ class AdamW:
     def update(self, grads, state: dict, params, lr: torch.Tensor, *,
                grad_shardings=None, opt_shardings=None
                ) -> Tuple[dict, dict, Dict[str, torch.Tensor]]:
-        """Returns (new_params, new_state, metrics).
+        """Returns (new_params, new_state, metrics): the tensors of
+        ``params`` and ``state``, the new values written into them (each
+        leaf's parameter, master copy and moments as that leaf's update
+        lands, ``count`` in place), as the reference's step does into its
+        donated buffers.  A leaf holds two float32 temporaries beside
+        them.  The caller runs it under ``torch.no_grad()`` and, to keep
+        the old state, passes a copy.
 
         ``grad_shardings``: the ``NamedSharding`` tree the gradients were
         reduced to (``train/step.py``).  On a mesh over ranks each leaf's
@@ -142,7 +167,7 @@ class AdamW:
         sharding's ``dim`` (the ZeRO layout of ``opt_shardings``, the
         state's ``NamedSharding`` tree), the parameters are whole: the
         update runs on the share and the new shares are all-gathered into
-        the new parameters.  The clip norm is global: the leaves' squared
+        the parameters.  The clip norm is global: the leaves' squared
         sums are all-reduced (a replicated leaf counted once), so every
         rank scales by the same number.  Int8 moments whose blocks are
         split otherwise than the gradient (the ZeRO dimension of their
@@ -167,7 +192,7 @@ class AdamW:
         mesh = None if grad_shardings is None else leaves(grad_shardings)[0].mesh
         if mesh is not None and mesh.group is None:
             mesh = None
-        count = state["count"] + 1
+        count = state["count"].add_(1)
         sums = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves(grads)]
         if mesh is not None and sums:
             # a rank counts the squares it holds alone: a leaf's share over
@@ -192,21 +217,28 @@ class AdamW:
         masters = state.get("master", params)
 
         def upd(p, g, m_enc, v_enc, master, encode=True):
+            # the reference's formula, its operations in its order (a
+            # product's operands swapped at most), each in place; the new
+            # parameter, master copy and (with ``encode``) moments land in
+            # the tensors given, every read of them done first
             g = g.to(torch.float32) * scale
-            m = self._decode(m_enc, p.shape)
-            v = self._decode(v_enc, p.shape)
-            m = cfg.b1 * m + (1 - cfg.b1) * g
-            v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+            m = self._decode(m_enc, p.shape).mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v = self._decode(v_enc, p.shape).mul_(cfg.b2).add_(
+                torch.square(g).mul_(1 - cfg.b2))
             del g
-            step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-            p32 = master.to(torch.float32) if use_master else p.to(torch.float32)
+            step = torch.div(m, b1c).div_(torch.div(v, b2c).sqrt_().add_(cfg.eps))
+            p32 = (master if use_master else p).to(torch.float32)
             if cfg.weight_decay and p.dim() >= 2:  # decay matrices, not norms/bias
-                step = step + cfg.weight_decay * p32
-            new_master = p32 - lr * step
-            new_p = new_master.to(p.dtype)
+                step.add_(cfg.weight_decay * p32)
+            new_master = p32.sub_(step.mul_(lr))
+            del step
             if encode:
-                m, v = self._encode(m), self._encode(v)
-            return new_p, m, v, (new_master if use_master else None)
+                m, v = self._encode(m, m_enc), self._encode(v, v_enc)
+            return _land(p, new_master), m, v, (new_master if use_master else None)
+
+        def put(specs, new, given):
+            # this rank's share of each whole new tensor, into its given one
+            return tree_map(lambda sh, t, d: _land(d, sh.place(t)), specs, new, given)
 
         if mesh is None:
             out = tree_map(upd, params, grads, state["m"], state["v"], masters)
@@ -214,7 +246,7 @@ class AdamW:
             def upd_share(s, p, g, m_enc, v_enc, master, ms, vs):
                 master = master if use_master else None
                 if isinstance(ms, dict) and s.mdim is not None and s.mdim == p.dim() - 1:
-                    return self._update_columns(upd, s, p, g, m_enc, v_enc, master, ms, vs)
+                    return self._update_columns(upd, put, s, p, g, m_enc, v_enc, master, ms, vs)
                 # the leaves (and a row-split leaf's codes) are model-local:
                 # only their data split is left
                 s = s.data_part
@@ -223,15 +255,14 @@ class AdamW:
                     vs = tree_map(lambda sh: sh.data_part, vs)
                 if _splits_alike(s, ms, p.shape):
                     new_p, m, v, nm = upd(s.place(p), g, m_enc, v_enc, master)
-                    return s.gather(new_p), m, v, nm
+                    return s.gather(new_p, out=p), m, v, nm
                 # int8 codes split otherwise than the leaf: update it whole
                 whole = {k: tree_map(lambda sh, t: sh.gather(t), sp, enc)
                          for k, sp, enc in (("m", ms, m_enc), ("v", vs, v_enc))}
-                new_p, m, v, nm = upd(p, s.gather(g), whole["m"], whole["v"],
-                                      s.gather(master) if use_master else None)
-                return (new_p, tree_map(lambda sh, t: sh.place(t), ms, m),
-                        tree_map(lambda sh, t: sh.place(t), vs, v),
-                        s.place(nm) if use_master else None)
+                _, m, v, nm = upd(p, s.gather(g), whole["m"], whole["v"],
+                                  s.gather(master) if use_master else None)
+                return (p, put(ms, m, m_enc), put(vs, v, v_enc),
+                        put(s, nm, master) if use_master else None)
 
             out = tree_map(upd_share, grad_shardings, params, grads, state["m"], state["v"],
                            masters, opt_shardings["m"], opt_shardings["v"])
@@ -241,7 +272,7 @@ class AdamW:
         return tree_pick(out, 0), new_state, {"grad_norm": gnorm}
 
     @staticmethod
-    def _update_columns(upd, s, p, g, m_enc, v_enc, master, ms, vs):
+    def _update_columns(upd, put, s, p, g, m_enc, v_enc, master, ms, vs):
         """``update`` of a leaf whose last dimension is split over the
         model group (``s.mdim``), with int8 moments, whose codes the specs
         keep whole along ``model`` (the reference's ``opt_state_specs``).
@@ -249,9 +280,10 @@ class AdamW:
         where its width is whole blocks (its columns then start at a block
         boundary too), else from the whole moments decoded; the new
         moments' codes are then made whole again on every rank of the
-        group (:func:`_whole_codes`).  The data split is handled as in
-        ``update``: locally where the codes split over ``data`` as the
-        leaf does, else from the codes gathered over the data group."""
+        group (:func:`_whole_codes`) and land in the codes the rank holds.
+        The data split is handled as in ``update``: locally where the
+        codes split over ``data`` as the leaf does, else from the codes
+        gathered over the data group."""
         mesh = s.mesh
         k, i = p.shape[-1], mesh.model_index
         aligned = k % BLOCK == 0
@@ -272,14 +304,13 @@ class AdamW:
 
         if _splits_alike(s, ms, p.shape):
             new_p, m, v, nm = upd(s.place(p), g, own(m_enc), own(v_enc), master, encode=False)
-            return s.gather(new_p), whole(m), whole(v), nm
-        m_enc, v_enc = (tree_map(lambda sh, t: sh.gather(t), sp, enc)
-                        for sp, enc in ((ms, m_enc), (vs, v_enc)))
-        new_p, m, v, nm = upd(p, s.gather(g), own(m_enc), own(v_enc),
-                              None if master is None else s.gather(master), encode=False)
-        return (new_p, tree_map(lambda sh, t: sh.place(t), ms, whole(m)),
-                tree_map(lambda sh, t: sh.place(t), vs, whole(v)),
-                None if nm is None else s.place(nm))
+            return s.gather(new_p, out=p), _land(m_enc, whole(m)), _land(v_enc, whole(v)), nm
+        gathered = [tree_map(lambda sh, t: sh.gather(t), sp, enc)
+                    for sp, enc in ((ms, m_enc), (vs, v_enc))]
+        _, m, v, nm = upd(p, s.gather(g), own(gathered[0]), own(gathered[1]),
+                          None if master is None else s.gather(master), encode=False)
+        return (p, put(ms, whole(m), m_enc), put(vs, whole(v), v_enc),
+                None if nm is None else put(s, nm, master))
 
     def state_bytes_per_param(self) -> float:
         return {"float32": 8.0, "bfloat16": 4.0, "int8": 2.0 + 8.0 / BLOCK}[

@@ -40,9 +40,8 @@ def _quantize(x: torch.Tensor) -> torch.Tensor:
         xb = F.pad(xb, (0, pad))
     blocks = xb.reshape(*xb.shape[:-1], -1, BLOCK)
     scale = torch.amax(torch.abs(blocks), dim=-1, keepdim=True) / 127.0
-    q = torch.round(blocks / torch.clamp(scale, min=1e-12))
-    q = torch.clamp(q, -127, 127)
-    deq = (q * scale).reshape(*xb.shape[:-1], -1)[..., :last]
+    q = (blocks / torch.clamp(scale, min=1e-12)).round_().clamp_(-127, 127)
+    deq = q.mul_(scale).reshape(*xb.shape[:-1], -1)[..., :last]
     return deq.reshape(shape)
 
 
@@ -65,7 +64,9 @@ def _quantize_columns(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def compress_grads(grads, residuals, shardings=None) -> Tuple[dict, dict]:
-    """Returns (quantized grads, new residuals).  ``shardings``: the
+    """Returns (quantized grads, new residuals): each new residual written
+    into the given one once that leaf's sum has read it, as the
+    reference's step writes its donated buffers.  ``shardings``: the
     gradients' ``NamedSharding`` tree where each leaf is this rank's share
     along ``model`` (tensor parallelism over ranks); a leaf split along its
     last dimension is then quantized in the whole leaf's blocks."""
@@ -76,7 +77,7 @@ def compress_grads(grads, residuals, shardings=None) -> Tuple[dict, dict]:
             q = _quantize_columns(g, s.mesh)
         else:
             q = _quantize(g)
-        return q, g - q
+        return q, torch.sub(g, q, out=r)
 
     if shardings is None:
         out = tree_map(one, grads, residuals)

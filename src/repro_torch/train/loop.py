@@ -139,7 +139,7 @@ class Trainer:
             self.model, self.optimizer, self.schedule,
             compress=self.tcfg.compress, grad_accum=self.tcfg.grad_accum,
             grad_shardings=shd.named(self.mesh, gspecs),
-            opt_shardings=self.state_shardings["opt"],
+            opt_shardings=self.state_shardings["opt"], donate=True,
         )
         self._rules = shd.activation_rules(self.cfg, self.mesh, self.dataset.batch)
 

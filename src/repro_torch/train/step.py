@@ -3,7 +3,9 @@
 ``train_step`` is a function (state, batch) -> (state, metrics) over a
 plain dict state ``{"params", "opt", "step"[, "residuals"]}``, so the
 checkpoint layer and the sharding-spec layer need no special casing; it
-returns a new state and leaves the one it was given as it was.
+returns a new state and leaves the one it was given as it was, or, built
+with ``donate=True``, writes the new state into the given one's tensors
+(the reference's ``jax.jit(step, donate_argnums=(0,))``).
 Gradients are ``torch.autograd.grad`` over the parameter leaves, in the
 leaves' types (bf16 leaves give bf16 grads, as ``jax.value_and_grad``
 does).  On a mesh over ranks the step is data-parallel
@@ -87,8 +89,19 @@ def make_train_step(
     grad_accum: int = 1,
     grad_shardings=None,
     opt_shardings=None,
+    donate: bool = False,
 ) -> Callable:
-    """``grad_shardings``: optional ``NamedSharding`` tree the reference
+    """``donate``: the step returns the state it was given, every leaf's
+    new values written into that leaf's storage (parameters, master
+    copies, moments or their int8 codes and scales, residuals, ``count``
+    and ``step``) as the leaf's update lands, so a step holds one state
+    and at most one leaf's temporaries beside the gradients.  The
+    reference's callers donate the state to their jitted step
+    (``Trainer``, the dry-run's train cell).  The default keeps the given
+    state, for callers that reuse it: the same update runs on a copy, so
+    the numbers are the donated step's bit for bit.
+
+    ``grad_shardings``: optional ``NamedSharding`` tree the reference
     constrains every (micro)batch's gradients to (its ZeRO layout).  On a
     mesh over ranks (``distributed/meshes.py``) each rank computes the
     loss of its rows, and each (micro)batch's gradients are reduced over
@@ -166,21 +179,22 @@ def make_train_step(
             means = mesh.mean(torch.stack([loss] + [metrics[k] for k in names]))
             loss, metrics = means[0], dict(zip(names, means[1:]))
 
-        new_state = dict(state)
-        if compress:
-            grads, new_state["residuals"] = compress_grads(
-                grads, state["residuals"], grad_shardings if tp is not None else None)
-            if ranked:
-                grads = tree_map(lambda s, g: s.data_part.place(g), grad_shardings, grads)
-        lr = schedule(state["step"])
-        if ranked:
-            new_params, new_opt, om = optimizer.update(
-                grads, state["opt"], state["params"], lr,
-                grad_shardings=grad_shardings, opt_shardings=opt_shardings)
-        else:
-            new_params, new_opt, om = optimizer.update(grads, state["opt"], state["params"], lr)
-        del grads
-        new_state.update(params=new_params, opt=new_opt, step=state["step"] + 1)
+        with torch.no_grad():
+            if not donate:  # the update below writes into the state it is given
+                state = tree_map(torch.clone, state)
+            new_state = dict(state)
+            if compress:
+                grads, new_state["residuals"] = compress_grads(
+                    grads, state["residuals"], grad_shardings if tp is not None else None)
+                if ranked:
+                    grads = tree_map(lambda s, g: s.data_part.place(g), grad_shardings, grads)
+            lr = schedule(state["step"])
+            shardings = (dict(grad_shardings=grad_shardings, opt_shardings=opt_shardings)
+                         if ranked else {})
+            new_state["params"], new_state["opt"], om = optimizer.update(
+                grads, state["opt"], state["params"], lr, **shardings)
+            del grads
+            state["step"].add_(1)
         out_metrics = dict(metrics)
         out_metrics.update(loss=loss, lr=lr, **om)
         return new_state, out_metrics

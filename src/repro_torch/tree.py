@@ -81,10 +81,12 @@ def eval_shape(fn: Callable):
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor's host copy as numpy; bfloat16, which numpy lacks, as its
-    ``uint16`` bit pattern (the checkpoint format's encoding)."""
+    """A tensor's host copy as numpy (a copy on the CPU too, so a later
+    in-place write to the tensor leaves it as it was); bfloat16, which
+    numpy lacks, as its ``uint16`` bit pattern (the checkpoint format's
+    encoding)."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).cpu().numpy().view(np.uint16)
-    return t.cpu().numpy()
+        return t.view(torch.int16).to("cpu", copy=True).numpy().view(np.uint16)
+    return t.to("cpu", copy=True).numpy()
 

@@ -583,3 +583,51 @@ def test_int8_moments_and_compression_over_ranks_of_the_card(device, tmp_path):
             if k.endswith("/q"):
                 d = np.abs(res["state"][k].astype(np.int32) - w.astype(np.int32))
                 assert d.max() <= 1, k
+
+
+def test_donated_train_step_holds_one_state_on_the_card(device):
+    """Reduced mamba2-2.7b at d_model 512 and a 1,024-entry vocabulary (2
+    layers, float32, float32 moments, B 1 x S 16): its leaves are of like
+    size, so the step's peak is at the update and one leaf's temporaries
+    are a small part of the state.  From one state on the card, the
+    donated step against the pure one: every leaf and metric bitwise
+    equal, every leaf in the storage it was given, and the peak above the
+    memory already held lower by at least 0.8 x the state's bytes."""
+    import copy
+
+    import torch_tp_optim_ranks as OR
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.optim import AdamW, WarmupCosine
+    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("mamba2-2.7b")).replace(d_model=512, vocab_size=1024,
+                                                     num_layers=2, dtype="float32")
+    model, opt = build_model(cfg, Runtime(remat="full")), AdamW()
+    sched = WarmupCosine(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in SyntheticLM(cfg, 1, 16).global_batch(0).items()}
+    state = init_state(model, opt, 0, device=device)
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    pure = make_train_step(model, opt, sched)
+    donated = make_train_step(model, opt, sched, donate=True)
+    pure(copy.deepcopy(state), batch)  # the libraries' workspaces, before the windows
+    twin, given = copy.deepcopy(state), OR.storages(state)
+    peaks, outs = {}, {}
+    for name, step, st in (("pure", pure, twin), ("donated", donated, state)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs[name] = step(st, batch)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - held
+    (want, wm), (got, gm) = outs["pure"], outs["donated"]
+    gl = dict(leaves_with_paths(got))
+    assert not [k for k, t in leaves_with_paths(want) if not OR.same_bits(t, gl[k])]
+    assert all(OR.same_bits(wm[k], gm[k]) for k in wm)
+    assert OR.storages(got) == given
+    print(f"donated step: peaks above the held memory {peaks}, state {state_bytes} B")
+    assert peaks["pure"] - peaks["donated"] >= 0.8 * state_bytes, (peaks, state_bytes)

@@ -3,12 +3,17 @@ axis across ranks (``tests/test_torch_tp_optim.py``) run inside each rank,
 and the one-process runs they are held to.  ``procs.spawn`` pickles these
 by import path, so they live in a module that imports neither JAX nor the
 reference package.  Not a test module."""
+import copy
+
 import torch
 
+import torch_ranks as TR
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.carry import state_from_numpy
 from repro_torch.data import SyntheticLM
 from repro_torch.distributed import procs
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.ctx import sharding_rules
 from repro_torch.distributed.fault import FailureInjector
 from repro_torch.distributed.meshes import gather_dim, units
 from repro_torch.models import Runtime, build_model
@@ -16,7 +21,7 @@ from repro_torch.optim import AdamW, AdamWConfig, WarmupCosine
 from repro_torch.optim import adamw as PADAM
 from repro_torch.optim import compress as PCOMP
 from repro_torch.train.loop import Trainer, TrainerConfig
-from repro_torch.train.step import init_state
+from repro_torch.train.step import init_state, make_train_step
 from repro_torch.tree import leaves_with_paths, tree_map
 from torch_tp_ranks import whole_grads
 
@@ -56,7 +61,9 @@ def make_trainer(ckpt_dir, devices, *, arch="granite-8b", mode="both", model_par
 
 
 def np_state(state):
-    return {k: t.cpu().numpy() for k, t in leaves_with_paths(state)}
+    """The state's leaves as host copies (a later donated step updates
+    the tensors in place)."""
+    return {k: t.to("cpu", copy=True).numpy() for k, t in leaves_with_paths(state)}
 
 
 class Moments:
@@ -67,9 +74,9 @@ class Moments:
     def __enter__(self):
         self.seen, self._orig = [], PADAM._q8
 
-        def rec(x):
+        def rec(x, out=None):
             self.seen.append(x.detach().clone())
-            return self._orig(x)
+            return self._orig(x, out)
 
         PADAM._q8 = rec
         return self
@@ -257,3 +264,67 @@ def elastic(ckpt_dir, peak_lr, fail_at):
     tr._init_or_restore = recording
     out = tr.run()
     return out, dict(tr.mesh.shape), restored
+
+
+def pure_step(tr):
+    """``tr``'s train step as ``Trainer._build`` makes it, but pure: it
+    leaves the state it is given as it was."""
+    pspecs = tr.state_specs["params"]
+    gspecs = pspecs
+    if tr.tcfg.zero:
+        like = tr._state_shape()["params"]
+        gspecs = tree_map(lambda sp, leaf: shd.zero_extend(sp, tuple(leaf.shape), tr.mesh),
+                          pspecs, like)
+    return make_train_step(tr.model, tr.optimizer, tr.schedule, compress=tr.tcfg.compress,
+                           grad_accum=tr.tcfg.grad_accum,
+                           grad_shardings=shd.named(tr.mesh, gspecs),
+                           opt_shardings=tr.state_shardings["opt"])
+
+
+def same_bits(a, b):
+    """Whether two tensors hold the same bytes (NaNs included)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def storages(state):
+    return {k: t.untyped_storage().data_ptr() for k, t in leaves_with_paths(state)}
+
+
+def donated_vs_pure(step, pure, state, batches):
+    """``step`` (donated) on ``state`` and ``pure`` on its deep copy, one
+    batch after another: per step, the paths of the new states' leaves
+    and metrics that differ in a bit, and the paths of the donated step's
+    leaves that are not in the storage ``state`` gave them."""
+    twin = copy.deepcopy(state)
+    given = storages(state)
+    out = []
+    for batch in batches:
+        twin, pm = pure(twin, batch)
+        state, dm = step(state, batch)
+        got = dict(leaves_with_paths(state))
+        differ = [k for k, t in leaves_with_paths(twin) if not same_bits(t, got[k])]
+        differ += [f"metrics/{k}" for k in pm if not same_bits(pm[k], dm[k])]
+        moved = [k for k, p in storages(state).items() if p != given[k]]
+        out.append({"differ": differ, "moved": moved, "leaves": len(got)})
+    return out
+
+
+def donation(cases, tmp, steps=2):
+    """In each rank: for each of ``cases`` ({name: (harness, keywords of
+    its ``make_trainer``)}, harness ``"ranks"`` for ``torch_ranks``'s,
+    ``"tp_optim"`` for this module's), the Trainer's train step (donated)
+    against the same step built pure, ``steps`` steps from the Trainer's
+    initial state (``donated_vs_pure``), with the mesh's shape."""
+    world = procs.current()
+    us = list(world.units)
+    out = {"rank": world.rank}
+    for name, (harness, kw) in cases.items():
+        make = TR.make_trainer if harness == "ranks" else make_trainer
+        tr = make(tmp / f"donate{world.size}_{name}", us, **kw)
+        state, _ = tr._init_or_restore()
+        batches = [tr._place_batch(tr.dataset.global_batch(s)) for s in range(steps)]
+        with sharding_rules(tr._rules):
+            steps_out = donated_vs_pure(tr._step, pure_step(tr), state, batches)
+        out[name] = {"steps": steps_out, "mesh": (tr.mesh.n_data, tr.mesh.n_model)}
+    return out
