@@ -24,6 +24,8 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch import trace
+
 NEG_INF = -1e30
 
 Index = Union[int, torch.Tensor]
@@ -141,11 +143,13 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
         from repro_torch.kernels import ops as kops
 
         if Sq == Skv and kv_valid_len is None:
+            trace.note("model.attention", impl="pallas")
             return kops.flash_attention(q, k, v, causal=causal, window=window,
                                         softcap=softcap)
         impl = "auto"  # decode / ragged inputs take the reference's route
     if impl == "auto":
         impl = "dense" if (Sq == 1 or Skv <= max(kv_chunk, 2048)) else "blocked"
+    trace.note("model.attention", impl=impl)
     if impl == "dense":
         return dense_attention(
             q, k, v, causal=causal, window=window, q_offset=q_offset,

@@ -57,6 +57,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.ctx import (
@@ -357,9 +358,15 @@ class Model:
                 (x @ wv).reshape(B, S, -1, hd))
 
     def _qkv(self, attn_bp: dict, h, positions):
-        """The rank's q, k, v (all heads on one process)."""
+        """The rank's q, k, v of the layer's input ``h`` (all heads on one
+        process)."""
+        return self._qkv_of(attn_bp, self._attn_in(attn_bp, h), positions)
+
+    def _qkv_of(self, attn_bp: dict, x, positions):
+        """q, k, v of the sublayer's normed input ``x``: the projections,
+        qk-norm and rotary positions."""
         cfg = self.cfg
-        q, k, v = self._project_qkv(attn_bp, self._attn_in(attn_bp, h))
+        q, k, v = self._project_qkv(attn_bp, x)
         if cfg.qk_norm:
             qn, kn = attn_bp["q_norm"], attn_bp["k_norm"]
             if self._attn_split(attn_bp):  # whole leaves on the rank's heads
@@ -383,12 +390,21 @@ class Model:
             kv_chunk=cfg.attn_kv_chunk,
         )
 
-    def _attn_sublayer(self, attn_bp, h, *, is_global: bool, positions, joint=False):
-        """Self-attention's output; ``joint``: the rank's partial sum, left
-        in the region for the caller to join with the SSM's."""
-        q, k, v = self._qkv(attn_bp, h, positions)
+    def _attn_sublayer(self, attn_bp, x, *, is_global: bool, positions, joint=False):
+        """Self-attention of the normed input ``x``, from the projections to
+        the output projection: (output, k, v).  ``joint``: the output is the
+        rank's partial sum, left in the region for the caller to join with
+        the SSM's."""
+        q, k, v = self._qkv_of(attn_bp, x, positions)
         o = self._self_attention(q, k, v, is_global=is_global)
-        return self._attn_out(o, attn_bp) if joint else self._attn_proj(o, attn_bp)
+        return (self._attn_out(o, attn_bp) if joint else self._attn_proj(o, attn_bp)), k, v
+
+    def _attention(self, attn_bp, h, *, is_global: bool, positions, joint=False):
+        """``_attn_sublayer`` of ``h`` through its pre-norm, in the span
+        ``model.attention``."""
+        return trace.call("model.attention", self._attn_sublayer, attn_bp,
+                          self._attn_in(attn_bp, h), is_global=is_global,
+                          positions=positions, joint=joint)
 
     def _mlp(self, p, x):
         """The dense FFN, a model-parallel region where the specs split it."""
@@ -464,16 +480,17 @@ class Model:
     def _block_fwd(self, bp, h, *, is_global: bool, positions, enc_out=None):
         cfg = self.cfg
         if cfg.family == "ssm":
-            return h + ssd_mod.ssd_apply(bp["ssm"], self._ssm_prenorm(bp, h), cfg)
+            return h + trace.call("model.ssd", ssd_mod.ssd_apply, bp["ssm"],
+                                  self._ssm_prenorm(bp, h), cfg)
         if cfg.parallel_ssm:
             joint = self._joint(bp)
-            a = self._attn_sublayer(bp["attn"], h, is_global=is_global, positions=positions,
-                                    joint=joint)
-            s = ssd_mod.ssd_apply(bp["ssm"], self._ssm_prenorm(bp, h), cfg, leave=not joint)
+            a, _, _ = self._attention(bp["attn"], h, is_global=is_global, positions=positions,
+                                      joint=joint)
+            s = trace.call("model.ssd", ssd_mod.ssd_apply, bp["ssm"], self._ssm_prenorm(bp, h),
+                           cfg, leave=not joint)
             h = h + leave_model(a + s) if joint else h + a + s
         else:
-            h = h + self._attn_sublayer(bp["attn"], h, is_global=is_global,
-                                        positions=positions)
+            h = h + self._attention(bp["attn"], h, is_global=is_global, positions=positions)[0]
         if "cross" in bp:
             h = h + self._cross_sublayer(bp["cross"], h, enc_out)
         h = h + self._mlp_sublayer(bp, h)
@@ -486,15 +503,14 @@ class Model:
         lc: Dict[str, Any] = {}
         parts = []
         joint = self._joint(bp)
-        attn_out = self._attn_out if joint else self._attn_proj
         if cfg.uses_attention:
-            q, k, v = self._qkv(bp["attn"], h, positions)
-            o = self._self_attention(q, k, v, is_global=is_global)
-            parts.append(attn_out(o, bp["attn"]))
-            lc["k"], lc["v"] = k, v
+            o, lc["k"], lc["v"] = self._attention(bp["attn"], h, is_global=is_global,
+                                                  positions=positions, joint=joint)
+            parts.append(o)
         if cfg.uses_ssm:
             x = self._ssm_prenorm(bp, h)
-            out, state, conv_tail = self._ssd_with_state(bp["ssm"], x, leave=not joint)
+            out, state, conv_tail = trace.call("model.ssd", self._ssd_with_state, bp["ssm"], x,
+                                               leave=not joint)
             parts.append(out)
             lc["h"] = state
             lc["conv"] = conv_tail

@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.distributed.ctx import enter_model, leave_model, model_sum, split_share
 from repro_torch.models.common import dense_init, normal, rms_norm, silu
 
@@ -186,6 +187,7 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg, *, h0: Optional[torch.Tensor] = N
     if use_pallas and h0 is not None:
         raise ValueError("ssd_forward(use_pallas=True) takes no h0: the "
                          "ssd_scan kernel starts from a zero state")
+    trace.note("model.ssd", route="ssd_scan" if use_pallas else "chunked")
     split = ssd_split(p, cfg)
     B, S, d = x.shape
     N, hp = cfg.ssm_state, cfg.ssm_head_dim

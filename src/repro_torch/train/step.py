@@ -20,6 +20,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.distributed.ctx import data_context, mesh_context
 from repro_torch.distributed.meshes import NamedSharding, P
 from repro_torch.models.model import Model
@@ -148,8 +149,10 @@ def make_train_step(
         return tree_map(lambda s, g: s.reduce(g), whole, grads) if ranked else grads
 
     def train_step(state: dict, batch: dict) -> Tuple[dict, Dict[str, torch.Tensor]]:
-        with _within(tp), data_context(mesh if ranked else None):
-            return step(state, batch)
+        tokens = batch["tokens"]
+        with trace.span("step.train", tokens, tokens=tokens.numel()):
+            with _within(tp), data_context(mesh if ranked else None):
+                return step(state, batch)
 
     def step(state: dict, batch: dict) -> Tuple[dict, Dict[str, torch.Tensor]]:
         if grad_accum > 1:
@@ -191,8 +194,12 @@ def make_train_step(
             lr = schedule(state["step"])
             shardings = (dict(grad_shardings=grad_shardings, opt_shardings=opt_shardings)
                          if ranked else {})
-            new_state["params"], new_state["opt"], om = optimizer.update(
-                grads, state["opt"], state["params"], lr, **shardings)
+            with trace.span("optim.update", state["step"]) as sp:
+                if sp:
+                    sp.count(leaves=len(leaves(grads)),
+                             state_bytes=sum(t.nbytes for t in leaves(state["opt"])))
+                new_state["params"], new_state["opt"], om = optimizer.update(
+                    grads, state["opt"], state["params"], lr, **shardings)
             del grads
             state["step"].add_(1)
         out_metrics = dict(metrics)
@@ -227,7 +234,8 @@ def make_prefill(model: Model, mesh: Optional[object] = None) -> Callable:
     returns holds the rank's KV and SSM heads)."""
 
     def prefill(params, batch):
-        with _within(mesh):
+        tokens = batch["tokens"]
+        with trace.span("step.prefill", tokens, tokens=tokens.numel()), _within(mesh):
             return model.prefill(params, batch)
 
     return prefill
