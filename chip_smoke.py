@@ -22,9 +22,12 @@ zoo -- serves hymba-1.5b at full width (cell ``serve_hymba_1_5b_p2048``:
 prefill launching ``flash_attention`` in every layer (bf16: the
 warp-specialised kernel, a TMA producer warpgroup feeding two wgmma
 consumer warpgroups; float32: the three-pass TF32 kernel, also on the
-tensor cores), against the plain blocked-attention route; ``ssd_forward(use_pallas=True)`` runs one
-full-width mamba2-2.7b layer through ``ssd_scan`` (cell
-``ssd_layer_mamba2_2_7b_s4096``) against the chunked form.
+tensor cores), against the plain blocked-attention route, and
+``ssd_scan`` for the SSM mixer in every layer on every route, each
+layer's mixer held to the chunked form on the same input;
+``ssd_forward(use_pallas=True)`` runs one full-width mamba2-2.7b layer
+through ``ssd_scan`` (cell ``ssd_layer_mamba2_2_7b_s4096``) against the
+chunked form.
 
 The control plane -- ``SchedulerService`` over the ``hetero`` preset of
 ``repro_torch.cli`` (cell ``daemon_hetero``) -- runs in process against
@@ -108,7 +111,8 @@ on every rank, the gated norm's mean square summed over the model group,
 one all-reduce a mixer; hymba's FFN columns, its attention whole at 25
 heads), held to one process in bf16 and float32 at full depth; a rank
 skipping its mixer's all-reduce, or normalising over its own channels,
-must fail it; ``ssd_scan`` timed on mamba2's heads a rank.  The dry-run over
+must fail it; each rank's prefill launches ``ssd_scan`` once a layer;
+``ssd_scan`` timed on mamba2's heads a rank.  The dry-run over
 ranks (phase 20, ``dryrun_ranks_h100``): rank 0's step of the (1, 2)
 mesh -- granite-8b's prefill and decode as phase 17 served them, the
 training step of phase 16's int8 leg; on several cards also phase 17's
@@ -137,7 +141,8 @@ guarded segments of the packed launches, one per staged burst.
 states in parallel, the serial state pass, the outputs) on the tensor
 cores.  The last two lines are the kernels' JSON record (the float32
 flash and ssd kernels have their own entries, ``flash_attention_float32``
-and ``ssd_scan_float32``) and
+and ``ssd_scan_float32``; ``ssd_scan`` is timed at phase 8's hymba
+prefill and counted there, ``ssd_scan_mamba2_layer`` at phase 9's) and
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
 code is non-zero; without a CUDA device, or without the repository
 around it, the script exits 2 and prints no result.  It imports nothing
@@ -248,12 +253,16 @@ SSD_CASES = (
     # N 16, and a chunk and a state size off the 16-row tiles
     (1, 256, 4, 32, 64, 256), (1, 2048, 4, 64, 64, 1024), (2, 512, 8, 128, 128, 256),
     (2, 512, 8, 32, 16, 128), (2, 192, 3, 64, 40, 96),
+    # prompts shorter than the chunk at hymba-1.5b's heads: the prefill
+    # hands the kernel Q = S, here 1, 37 and 200, off the 16-row tiles
+    (2, 1, 50, 64, 16, 1), (2, 37, 50, 64, 16, 37), (2, 200, 50, 64, 16, 200),
     # mamba2-2.7b's layer on a rank's heads at model_par 2 and 4 (phase 19)
     (2, 4096, 40, 64, 128, 256), (2, 4096, 20, 64, 128, 256),
 )
 SSD_TOL = 2e-4
-FLASH_PATH, SSD_PATH = HYMBA_FLASH, SSD_CASES[4]  # phase 7's timed shapes
+FLASH_PATH, SSD_PATH = HYMBA_FLASH, SSD_CASES[4]  # phase 7's timed shapes, and SSD_SERVE
 SERVE_ARCH, SERVE_B, SERVE_P, SERVE_STEPS, SERVE_CAP = "hymba-1.5b", 4, 2048, 32, 2080
+SSD_SERVE = SSD_CASES[5]  # phase 8's scan: hymba-1.5b's heads at its batch and length
 # rel. max error (max |diff| / max |plain|) of the kernel route against the
 # plain blocked route.  Per layer, each layer fed the plain route's input
 # (its attention output and the layer's output), and end to end in float32:
@@ -2006,13 +2015,19 @@ def layerwise_rel_err(kern, plain, params, batch, extra=None):
     layer's output is compared with the kernel route's MoE taking the
     plain route's routing, and ``extra`` (a dict) gets the error with the
     kernel route's own routing and the tokens whose experts or drops
-    differ (``routing_flips`` per layer, of ``tokens``)."""
+    differ (``routing_flips`` per layer, of ``tokens``).  Both routes'
+    layers take ``ssd_scan`` for an SSM mixer, so where ``extra`` is given
+    each mixer also runs through the kernel and through the chunked form
+    (``ssd_forward(use_pallas=False)``) on the plain route's input to it,
+    and ``extra["layer_ssd_rel_err"]`` gets the largest rel. error of its
+    output, state and conv tail."""
     import torch
+    from repro_torch.models import ssd as ssd_mod
     from repro_torch.models.common import rms_norm
     from repro_torch.models.model import _tmap
 
     cfg = plain.cfg
-    attn, out, own, flips = 0.0, 0.0, 0.0, []
+    attn, out, own, flips, ssd = 0.0, 0.0, 0.0, [], 0.0
     if cfg.is_encoder_decoder:  # the encoder's layers, then the plain route's
         h = plain._enc_input(batch["src_embeds"])  # output feeds both decoders
         for li in range(cfg.num_encoder_layers):
@@ -2033,6 +2048,12 @@ def layerwise_rel_err(kern, plain, params, batch, extra=None):
         attn = max(attn, rel_err(kern._self_attention(q, k, v, is_global=g),
                                  plain._self_attention(q, k, v, is_global=g)))
         del q, k, v
+        if cfg.uses_ssm and extra is not None:
+            x, leave = plain._ssm_prenorm(bp, h), not plain._joint(bp)
+            got, want = (ssd_mod.ssd_forward(bp["ssm"], x, cfg, leave=leave, use_pallas=kernel)
+                         for kernel in (True, False))
+            ssd = max(ssd, *(rel_err(a, b) for a, b in zip(got, want)))
+            del x, got, want
         if cfg.uses_moe:
             hp, rp, _ = moe_block(plain, bp, h, positions, g)
             if li == 0:  # the helper is the model's layer
@@ -2055,6 +2076,8 @@ def layerwise_rel_err(kern, plain, params, batch, extra=None):
     if extra is not None and cfg.uses_moe:
         extra.update(layer_out_rel_err_own_routing=own, routing_flips=flips,
                      tokens=int(h.shape[0] * h.shape[1]))
+    if extra is not None and cfg.uses_ssm:
+        extra["layer_ssd_rel_err"] = ssd
     return attn, out
 
 
@@ -2096,24 +2119,31 @@ def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS
     blocked query chunk).  The batch is the family's (``serve_batch``);
     an encoder-decoder's encoder runs on its frames, and each prefill
     launches ``flash_attention`` once a decoder and once an encoder
-    layer.  Launches are counted on the
-    prefills through the user entry points (warm-up and timed; the counts
-    are set to 0 before the phase).  Returns (launches by type, metrics by
-    type)."""
+    layer.  An SSM or hybrid model's prefill launches ``ssd_scan`` once
+    a layer on every route (the model takes the kernel for its mixer
+    wherever no graph is being built); the per-layer check holds each
+    mixer through the kernel against the chunked form.  Launches are
+    counted on the prefills through the user entry points (warm-up and
+    timed; the counts are set to 0 before the phase; ``ssd_scan``'s in
+    each type's metrics).  Returns (``flash_attention`` launches by type,
+    metrics by type)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models import Runtime, build_model
     from repro_torch.train import make_decode_step, make_prefill
 
     base = get_config(arch).replace(**(cfg_kw or {}))
     out, launches = {}, {}
     FA.reset_stats()
+    SS.reset_stats()
     for dtype, tol in SERVE_TOL.items():
         cfg = base.replace(dtype=dtype)
         if layers and layers.get(dtype):
             cfg = cfg.replace(num_layers=layers[dtype])
         L = cfg.num_layers + cfg.num_encoder_layers  # launches a prefill
+        Ls = cfg.num_layers if cfg.uses_ssm else 0  # ssd_scan's, on every route
         kern = build_model(cfg, Runtime(attn_impl="pallas", remat="none"))
         plain = build_model(cfg, Runtime(attn_impl="blocked", remat="none"))
         routes = {"k": kern, "p": plain}
@@ -2126,10 +2156,10 @@ def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS
         step = {r: make_decode_step(mdl) for r, mdl in routes.items()}
         m = {"layers": cfg.num_layers, "encoder_layers": cfg.num_encoder_layers}
         with torch.inference_mode():
-            n0 = FA.STATS["flash_attention"]
+            n0, s0 = FA.STATS["flash_attention"], SS.STATS["ssd_scan"]
             prefill["k"](params, batch)  # warm-up: cuBLAS handles, first launches
             sync(device)
-            n1 = FA.STATS["flash_attention"]
+            n1, s1 = FA.STATS["flash_attention"], SS.STATS["ssd_scan"]
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2139,7 +2169,7 @@ def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS
             m["prefill_s"] = time.perf_counter() - t0
             if device.type == "cuda":
                 m["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-            n2 = FA.STATS["flash_attention"]
+            n2, s2 = FA.STATS["flash_attention"], SS.STATS["ssd_scan"]
             for r in routes.keys() - {"k"}:
                 logits[r], caches[r] = prefill[r](params, batch)
             sync(device)
@@ -2147,7 +2177,12 @@ def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS
                   f"serve {dtype}: flash_attention launches per prefill "
                   f"{n1 - n0}, {n2 - n1} (want {L}) and "
                   f"{FA.STATS['flash_attention'] - n2} on the plain routes (want 0)")
+            s3 = SS.STATS["ssd_scan"]
+            check(s1 - s0 == Ls and s2 - s1 == Ls and s3 - s2 == Ls * (len(routes) - 1),
+                  f"serve {dtype}: ssd_scan launches per prefill {s1 - s0}, {s2 - s1} and "
+                  f"{s3 - s2} over the {len(routes) - 1} plain routes (want {Ls} a prefill)")
             launches[dtype] = n2 - n0  # bf16: the wgmma kernel, float32: the TF32 one
+            m["ssd_scan_launches"] = s2 - s0
             check(tuple(logits["k"].shape) == (B, 1, cfg.vocab_size)
                   and bool(torch.isfinite(logits["k"].float()).all()),
                   f"serve {dtype}: prefill logits not finite of shape (B, 1, V)")
@@ -2165,7 +2200,7 @@ def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS
                     caches["k"] = mcache
                     m["decode_from"] = "the matched-routing prefill's cache"
                 del mlog, mcache
-                n2 = FA.STATS["flash_attention"]  # a comparison's launches
+                n2, s3 = FA.STATS["flash_attention"], SS.STATS["ssd_scan"]  # a comparison's
             caches = {r: pad_cache(c, cap) for r, c in caches.items()}
             tok = logits["p"][:, -1].argmax(-1)[:, None]
             step_s, agree = [], 0
@@ -2185,6 +2220,7 @@ def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS
                 agree += int(torch.equal(lg["k"][:, -1].argmax(-1), lg["p"][:, -1].argmax(-1)))
                 tok = lg["p"][:, -1].argmax(-1)[:, None]
             check(FA.STATS["flash_attention"] == n2, f"serve {dtype}: decode launched flash")
+            check(SS.STATS["ssd_scan"] == s3, f"serve {dtype}: decode launched ssd_scan")
             del caches
             m["prefill_rel_err"], m["decode_max_rel_err"] = errs["k"][0], max(errs["k"][1:])
             lim = [tol, tol]
@@ -2203,6 +2239,9 @@ def phase_serve(device, arch=SERVE_ARCH, B=SERVE_B, P=SERVE_P, steps=SERVE_STEPS
             check(max(m["layer_attn_rel_err"], m["layer_out_rel_err"]) < tol,
                   f"serve {dtype}: a layer's rel errs (attention, output) "
                   f"{m['layer_attn_rel_err']}, {m['layer_out_rel_err']} >= {tol}")
+            check(m.get("layer_ssd_rel_err", 0.0) < tol,
+                  f"serve {dtype}: a layer's mixer through ssd_scan against the chunked "
+                  f"form, rel err {m.get('layer_ssd_rel_err')} >= {tol}")
             # planted fault: by default the kernel route with the window ignored
             fault_model = fault(cfg, kern.rt)
             m["fault_layer_attn_out_rel_err"] = layerwise_rel_err(
@@ -4140,6 +4179,7 @@ def tp_serve_leg(leg, mesh, tally):
     import torch
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models import Runtime, build_model
     from repro_torch.train import make_decode_step, make_prefill
     from repro_torch.train.step import placed_params
@@ -4173,11 +4213,13 @@ def tp_serve_leg(leg, mesh, tally):
         with torch.inference_mode(), RouteReplay(leg.get("replay")):
             tally.take()
             FA.reset_stats()
+            SS.reset_stats()
             t0 = time.perf_counter()
             lg, cache = prefill(params, batch)
             sync(dev)
             m["prefill_s"] = time.perf_counter() - t0
             m["flash_launches_per_prefill"] = FA.STATS["flash_attention"]
+            m["ssd_launches_per_prefill"] = SS.STATS["ssd_scan"]
             calls = tally.take()
             m["prefill_collectives"] = tally_summary(calls)
             m["prefill_coll"] = coll_of(calls)
@@ -4207,6 +4249,8 @@ def tp_serve_leg(leg, mesh, tally):
                     logits.append(lg.float().cpu())
             check(FA.STATS["flash_attention"] == m["flash_launches_per_prefill"],
                   f"tp {leg['name']}: decode launched flash_attention")
+            check(SS.STATS["ssd_scan"] == m["ssd_launches_per_prefill"],
+                  f"tp {leg['name']}: decode launched ssd_scan")
     finally:
         undo()
     if step_s:
@@ -4356,10 +4400,12 @@ def tp_run(device, workdir, tag, m, backend, rank_units, legs):
             lm = r[leg["name"]][0]
             print(f"    rank {r['rank']} on {r['device']} {leg['name']}: "
                   + " ".join(f"{k}={v!r}" for k, v in lm.items()))
-            want = lm["layers"] if leg["cfg"].uses_attention else 0
-            check(lm["flash_launches_per_prefill"] == want or device.type != "cuda",
-                  f"{tag} {leg['name']}: rank {r['rank']} launched flash_attention "
-                  f"{lm['flash_launches_per_prefill']} times a prefill (want {want})")
+            for key, kern, uses in (("flash", "flash_attention", leg["cfg"].uses_attention),
+                                    ("ssd", "ssd_scan", leg["cfg"].uses_ssm)):
+                n, want = lm[f"{key}_launches_per_prefill"], lm["layers"] if uses else 0
+                check(n == want or device.type != "cuda",
+                      f"{tag} {leg['name']}: rank {r['rank']} launched {kern} {n} times "
+                      f"a prefill (want {want})")
     return res
 
 
@@ -4703,7 +4749,8 @@ def phase_serve_tp_ssm(device, workdir, cards=None):
     prefill check.  With 4 cards both over 4 cards (mamba2 20 heads a
     rank, hymba's SSM whole), and ``launch.train --smoke --model-par 2``
     of each through a recovery (``ssm_train_cards``).  Each rank's
-    ``flash_attention`` launches a prefill, SSM heads and conv channels,
+    ``flash_attention`` and ``ssd_scan`` launches a prefill (one a layer
+    on the card; ``tp_run`` checks both), SSM heads and conv channels,
     peak memory, bytes held and collectives (count, type, µs) are printed;
     ``flash_attention`` is timed at hymba's shape on every rank
     (``SSM_TP_FLASH``) and ``ssd_scan`` at mamba2's heads a rank
@@ -5062,8 +5109,10 @@ def main() -> int:
     kernels = phase_timings(device, path, diff)
     model_times = {"flash_attention": time_flash(device, "bfloat16"),
                    "flash_attention_float32": time_flash(device, "float32"),
-                   "ssd_scan": time_ssd(device, "bfloat16"),
-                   "ssd_scan_float32": time_ssd(device, "float32")}
+                   "ssd_scan": time_ssd(device, "bfloat16", SSD_SERVE),
+                   "ssd_scan_float32": time_ssd(device, "float32", SSD_SERVE),
+                   "ssd_scan_mamba2_layer": time_ssd(device, "bfloat16"),
+                   "ssd_scan_mamba2_layer_float32": time_ssd(device, "float32")}
     from repro_torch.kernels import ssd_scan as SS
 
     window, softcap, causal = FLASH_PATH[5:]
@@ -5100,8 +5149,12 @@ def main() -> int:
     for dtype, n in ssd_launches.items():
         check(n > 0, f"ssd_scan ({dtype}) was never launched on the SSD layer")
     lap("9")
+    for dtype, m in served.items():
+        check(m["ssd_scan_launches"] > 0,
+              f"ssd_scan ({dtype}) was never launched on the serving path")
     print(f"  serving and SSD launches: flash_attention={flash_launches} "
-          f"ssd_scan={ssd_launches}")
+          f"ssd_scan={ {d: m['ssd_scan_launches'] for d, m in served.items()} } "
+          f"(phase 9: {ssd_launches})")
     print("== phase 10: control plane, daemon_hetero")
     daemon_launches = phase_daemon(device, ROOT / "build" / "daemon")
     print(f"  daemon launches: {daemon_launches}")
@@ -5142,18 +5195,26 @@ def main() -> int:
     family, _, family_flash = phase_serve_families(device)
     print(f"  family serving launches: flash_attention={family}")
     lap("15")
-    for name, src, line, n in (
-            ("flash_attention", "flash_attention.cu", "flash_attention.py:127",
-             flash_launches["bfloat16"]),
-            ("flash_attention_float32", "flash_attention.cu", "flash_attention.py:127",
-             flash_launches["float32"]),
-            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:102", ssd_launches["bfloat16"]),
-            ("ssd_scan_float32", "ssd_scan.cu", "ssd_scan.py:102", ssd_launches["float32"])):
+    # ssd_scan at phase 8's hymba prefill, with its launches there; at
+    # mamba2's layer, phase 9's
+    for name, err, src, line, n in (
+            ("flash_attention", "flash_attention", "flash_attention.cu",
+             "flash_attention.py:127", flash_launches["bfloat16"]),
+            ("flash_attention_float32", "flash_attention_float32", "flash_attention.cu",
+             "flash_attention.py:127", flash_launches["float32"]),
+            ("ssd_scan", "ssd_scan", "ssd_scan.cu", "ssd_scan.py:102",
+             served["bfloat16"]["ssd_scan_launches"]),
+            ("ssd_scan_float32", "ssd_scan_float32", "ssd_scan.cu", "ssd_scan.py:102",
+             served["float32"]["ssd_scan_launches"]),
+            ("ssd_scan_mamba2_layer", "ssd_scan", "ssd_scan.cu", "ssd_scan.py:102",
+             ssd_launches["bfloat16"]),
+            ("ssd_scan_mamba2_layer_float32", "ssd_scan_float32", "ssd_scan.cu",
+             "ssd_scan.py:102", ssd_launches["float32"])):
         t = model_times[name]
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/{line}", launches=n,
-            max_abs_err=model_err[name], ms=t["ms"], plain_ms=t["plain_ms"],
+            max_abs_err=model_err[err], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"]))
     for shape, n in family_launches(family).items():

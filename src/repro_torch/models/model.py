@@ -51,6 +51,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -523,8 +524,15 @@ class Model:
         return h, lc
 
     def _ssd_with_state(self, sp, x, leave=True):
-        """SSD over a full sequence, returning output + decode-ready state."""
-        return ssd_mod.ssd_forward(sp, x, self.cfg, leave=leave)
+        """SSD over a full sequence, returning output + decode-ready state.
+        The scan takes the ``ssd_scan`` kernel where ``x`` is on the card
+        and no graph is being built (grad off, or nothing requiring it),
+        and the chunked form elsewhere; the reference's ``Model`` takes
+        the chunked form everywhere.  A fake tensor holds no data for the
+        kernel to read: the dry-run counts the chunked form."""
+        graph = torch.is_grad_enabled() and any(t.requires_grad for t in (x, *sp.values()))
+        kernel = x.device.type == "cuda" and not graph and not is_fake(x)
+        return ssd_mod.ssd_forward(sp, x, self.cfg, leave=leave, use_pallas=kernel)
 
     def _striped_attention(self, q, k6, v6, pos: int, *, window: int, is_global: bool):
         """Attention over a striped (B, nblk, w, KVH, hd) cache.

@@ -13,8 +13,11 @@ parameter trees map leaf for leaf.
 
 ``ssd_forward(use_pallas=True)`` runs the chunked scan through the
 hand-written kernel (``kernels/ops.ssd_scan``): CUDA on a CUDA tensor,
-its plain version on a CPU tensor.  That flag is the kernel's only way
-in, as in the reference: the model's layers take the chunked form.
+its plain version on a CPU tensor; a length that is no multiple of the
+chunk is padded as :func:`ssd_chunked` pads it.  The flag defaults to
+the chunked form.  The model's prefill (``Model._ssd_with_state``) sets
+it on the card where no autograd graph is being built; training and the
+CPU take the chunked form, as the reference's layers do everywhere.
 
 Decode is the O(1) recurrent step:  h ← e^{AΔ}·h + Δ·B⊗x,  y = C·h + D·x,
 with a small causal-conv ring buffer.
@@ -84,23 +87,28 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return silu(out + b.float()).to(x.dtype)
 
 
+def _pad_tail(Q: int, xh, dt, Bm, Cm):
+    """``xh``, ``dt``, ``Bm``, ``Cm`` padded along S to a multiple of
+    ``Q`` with zeros: dt = 0 there, so the decay is 1 and the deposit 0,
+    and the outputs up to S and the final state are exact."""
+    pad = -xh.shape[1] % Q
+    if not pad:
+        return xh, dt, Bm, Cm
+    return (F.pad(xh, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)),
+            F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad)))
+
+
 def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk: int,
                 h0: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xh (B,S,nh,hp), dt (B,S,nh) positive, A (nh,) negative, Bm/Cm
     (B,S,N), optional initial state h0 (B,nh,hp,N).  Returns (y
     (B,S,nh,hp) fp32, final_state (B,nh,hp,N) fp32)."""
+    S_orig = xh.shape[1]
+    Q = min(chunk, S_orig)
+    xh, dt, Bm, Cm = _pad_tail(Q, xh, dt, Bm, Cm)
     B, S, nh, hp = xh.shape
     N = Bm.shape[-1]
-    Q = min(chunk, S)
-    S_orig = S
-    if S % Q:  # pad tail: dt=0 ⇒ decay=1 and zero deposit ⇒ exact
-        pad = Q - S % Q
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
-        S = S + pad
     nc = S // Q
 
     xc = xh.reshape(B, nc, Q, nh, hp).float()
@@ -180,9 +188,10 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg, *, h0: Optional[torch.Tensor] = N
     Returns (out (B,S,d), final_state (B,nh,hp,N), conv_tail (B,w-1,di+2N)).
     ``use_pallas`` runs the scan through the kernel, which takes no
     initial state: passing ``h0`` with it raises (the reference drops
-    ``h0`` silently there).  On a rank's share (:func:`ssd_split`) nh and
-    di are the rank's, and ``out`` has left the region unless ``leave``
-    is false (then it is the rank's partial sum).
+    ``h0`` silently there); S need not be a multiple of the chunk.  On a
+    rank's share (:func:`ssd_split`) nh and di are the rank's, and
+    ``out`` has left the region unless ``leave`` is false (then it is the
+    rank's partial sum).
     """
     if use_pallas and h0 is not None:
         raise ValueError("ssd_forward(use_pallas=True) takes no h0: the "
@@ -208,9 +217,10 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg, *, h0: Optional[torch.Tensor] = N
     if use_pallas:
         from repro_torch.kernels import ops as kops
 
-        y, state = kops.ssd_scan(xs.contiguous(), dtp.contiguous(), A,
-                                 Bm.contiguous(), Cm.contiguous(),
-                                 chunk=cfg.ssm_chunk)
+        xk, dk, bk, ck = (t.contiguous()
+                          for t in _pad_tail(min(cfg.ssm_chunk, S), xs, dtp, Bm, Cm))
+        y, state = kops.ssd_scan(xk, dk, A, bk, ck, chunk=cfg.ssm_chunk)
+        y = y[:, :S]
     else:
         y, state = ssd_chunked(xs, dtp, A, Bm, Cm, chunk=cfg.ssm_chunk, h0=h0)
     y = y + xs.float() * p["D"][None, None, :, None]

@@ -290,7 +290,11 @@ def test_flash_attention_bf16_launches_are_bitwise_equal(device, shape):
                                    # and state size off the 16-row tiles
                                    (1, 256, 4, 32, 64, 256), (1, 2048, 2, 64, 64, 1024),
                                    (1, 512, 4, 128, 128, 256), (2, 256, 4, 16, 16, 64),
-                                   (1, 200, 3, 64, 40, 100)])
+                                   (1, 200, 3, 64, 40, 100),
+                                   # hymba-1.5b's heads, as its prefill takes them,
+                                   # and prompts under the chunk (Q = S, odd)
+                                   (2, 2048, 50, 64, 16, 256), (2, 1, 50, 64, 16, 1),
+                                   (2, 37, 50, 64, 16, 37), (2, 200, 50, 64, 16, 200)])
 def test_ssd_scan_kernel_matches_plain(device, shape, dtype):
     from repro_torch.kernels import ssd_scan as SS
 
@@ -333,6 +337,79 @@ def test_ssd_scan_kernel_steep_decay_matches_plain(device, dtype):
     assert bool(torch.isfinite(y).all())
     torch.testing.assert_close(y, yp, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(h, hp_, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("name,width,S,dtype,tol", [
+    ("hymba-1.5b", "reduced", 45, "float32", 1e-4), ("hymba-1.5b", "reduced", 45, "bfloat16", 2e-2),
+    ("mamba2-2.7b", "reduced", 45, "float32", 1e-4), ("mamba2-2.7b", "reduced", 45, "bfloat16", 2e-2),
+    # full width at 2 layers, a prompt under the chunk of 256: Q = S = 37
+    ("hymba-1.5b", "full", 37, "float32", 1e-4)])
+def test_prefill_mixer_takes_ssd_scan_on_the_card(device, name, width, S, dtype, tol):
+    """An SSM and hybrid prefill on the card under inference_mode, at a
+    length that is no multiple of the chunk (reduced: 45 over 16) or
+    under it (full width: 37 over 256): every layer's mixer launches
+    ``ssd_scan`` once, and its ``model.ssd`` span notes the route and the
+    launch; logits and every cache leaf within ``tol`` of each tensor's
+    largest magnitude of the same prefill on the CPU (the chunked
+    form)."""
+    from repro_torch import trace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.train import make_prefill
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(name).replace(dtype=dtype)
+    cfg = reduced(cfg) if width == "reduced" else cfg.replace(num_layers=2)
+    prefill = make_prefill(build_model(cfg, Runtime(remat="none")))
+    params = build_model(cfg).init(0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, S)).astype(np.int32))
+    assert S % cfg.ssm_chunk
+    with torch.inference_mode():
+        want = prefill(params, {"tokens": toks})
+        before = SS.STATS["ssd_scan"]
+        trace.take()
+        with trace.recording():
+            got = prefill(tree_map(lambda t: t.to(device), params), {"tokens": toks.to(device)})
+        recs = [r for r in trace.take() if r.name == "model.ssd"]
+    assert SS.STATS["ssd_scan"] - before == cfg.num_layers == len(recs)
+    assert all(r.counters["route"] == "ssd_scan" and r.launches["ssd_scan"] == 1
+               for r in recs)
+    (gl, gc), (wl, wc) = got, want
+    assert sorted(gc) == sorted(wc)
+    for k, a, b in [("logits", gl, wl)] + [(k, gc[k], wc[k]) for k in wc]:
+        b = b.float()
+        rel = float((a.cpu().float() - b).abs().max()) / float(b.abs().max())
+        assert rel < tol, (k, rel)
+
+
+def test_prefill_under_grad_keeps_the_chunked_mixer_on_the_card(device):
+    """A prefill on the card with grad on and a mixer parameter that
+    requires grad builds a graph, which the kernel cannot join: every
+    ``model.ssd`` span notes the chunked route, none launches
+    ``ssd_scan``, nothing raises, and the logits carry the graph."""
+    from repro_torch import trace
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import Runtime, build_model
+
+    cfg = reduced(get_config("hymba-1.5b"))
+    model = build_model(cfg, Runtime(remat="none"))
+    params = model.init(0, device=device)
+    params["blocks"]["ssm"]["A_log"].requires_grad_(True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32)).to(device)
+    before = SS.STATS["ssd_scan"]
+    trace.take()
+    with torch.enable_grad(), trace.recording():
+        logits, _ = model.prefill(params, {"tokens": toks})
+    recs = [r for r in trace.take() if r.name == "model.ssd"]
+    assert SS.STATS["ssd_scan"] == before
+    assert len(recs) == cfg.num_layers and logits.requires_grad
+    assert all(r.counters["route"] == "chunked" and r.launches["ssd_scan"] == 0
+               for r in recs)
 
 
 def test_hymba_shaped_prefill_launches_flash_attention(device):

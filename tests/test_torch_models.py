@@ -195,6 +195,25 @@ def test_ssd_forward_through_the_kernel_matches_reference(name):
         _close(a, b)
 
 
+@pytest.mark.parametrize("length", [5, 37])
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "hymba-1.5b"])
+def test_ssd_forward_through_the_kernel_pads_the_tail(name, length):
+    """At a length that is no multiple of the reduced chunk of 16 (37),
+    or under it (5), the kernel route (``ssd_scan_plain`` on the CPU)
+    gives the chunked form's output, final state and conv tail."""
+    cfg = PC.reduced(PC.get_config(name)).replace(dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    p = PS.ssd_init(gen, cfg, torch.float32)
+    x = torch.randn((2, length, cfg.d_model), generator=gen)
+    with torch.inference_mode():
+        got = PS.ssd_forward(p, x, cfg, use_pallas=True)
+        want = PS.ssd_forward(p, x, cfg, use_pallas=False)
+    assert length % cfg.ssm_chunk
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _close(a, b.numpy())
+
+
 def test_bfloat16_hymba_matches_reference():
     """bfloat16 parameters carried exactly; prefill logits, every cache
     leaf and three decode steps within 2e-2 of the reference, relative to
