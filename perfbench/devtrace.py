@@ -5,7 +5,8 @@ The spans are ``torch.profiler.record_function`` ranges around the calls
 into the program (and around waiting for it), so in a traced stretch they
 lie in the profiler's own clock beside the device's operations.  The
 trace is read in memory from the profiler's events: every device
-operation (kernels, copies, sets) with its start and end.  Busy time is
+operation (kernels, copies, sets) with its start and end; the ranges of
+annotations laid over them are left out.  Busy time is
 the union of their intervals, so operations that overlap on several
 streams count once.  An idle gap is a stretch between two busy intervals;
 it is named by the innermost span the host had open when it began.
@@ -20,6 +21,10 @@ import torch
 
 STRETCH = "bench.stretch"
 SPANS = ("bench.inputs", "bench.prefill", "bench.train_step", "bench.synchronise")
+# ranges the profiler also lays on the device's timeline over the work
+# they enclose: the benchmark's spans and torch.distributed's collectives
+# (``nccl:all_reduce``); they are no device operation
+ANNOTATIONS = ("bench.", "nccl:")
 
 
 def span(name: str):
@@ -63,7 +68,7 @@ def read(prof, stretch: Stretch) -> Stretch:
     for name, is_dev, s, e in _events(prof):
         if name == STRETCH and not is_dev:
             window = (s, e)
-        elif is_dev and not name.startswith("bench."):
+        elif is_dev and not name.startswith(ANNOTATIONS):
             dev.append((name, s, e))
         elif not is_dev and name in SPANS:
             host.append((name, s, e))

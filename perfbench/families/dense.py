@@ -3,11 +3,12 @@ rotary positions, causal, windowed where the configuration gives a
 window.
 
 A family module holds all that the benchmark knows of one family's
-mixer, found by the configuration's ``family``: ``draw`` (its weights in
-the port's layout), ``weight_macs`` and ``sequence_macs`` (its work) and
-``mixer`` (its plain float32 reference).  The layer around the mixer
-(the norms, the SwiGLU FFN, the embedding and the head) is the same in
-every family and lives with the shared code.
+layer, found by the configuration's ``family``: ``draw`` (its mixer's
+weights in the port's layout), ``weight_macs`` and ``sequence_macs`` (its
+mixer's work) and ``mixer`` (its plain float32 reference), and any of
+the hooks that ``family.py`` lists.  This family defines none of them: it
+takes the defaults (the SwiGLU FFN, the same layer at every depth, no
+scales, the cache indexed by layer).
 """
 from __future__ import annotations
 

@@ -6,7 +6,9 @@ multiply-add of every weight product of every token, attention over the
 query-key pairs its mask keeps (a window of w at S > w averages fewer
 than S/2 keys a query), the SSD mixer's chunked products over the pairs
 its causal mask keeps, and the head on the positions whose logits are
-computed (every position in training, the last one in a prefill).  A
+computed (every position in training, the last one in a prefill), each
+layer's as its family counts it (``layer_macs``: a routed FFN counts the
+experts a token uses, not all of them).  A
 training step is three forward passes' worth (the forward, and the
 backward's two products for each); recomputation under remat is not
 model work and is not counted.  Norms, activations, softmax and other
@@ -14,13 +16,8 @@ elementwise work are not counted.
 """
 from __future__ import annotations
 
-import importlib
-
+import family as F
 from families.dense import causal_pairs
-
-
-def _family(cfg: dict):
-    return importlib.import_module(f"families.{cfg['family']}")
 
 
 def flash_ops(B: int, S: int, H: int, hd: int, window: int) -> int:
@@ -35,17 +32,32 @@ def flash_bytes(B: int, S: int, H: int, KVH: int, hd: int, itemsize: int) -> int
     return (2 * B * S * H * hd + 2 * B * S * KVH * hd) * itemsize
 
 
-def layer_weight_macs(cfg: dict) -> int:
-    """Multiply-adds of one layer's weight products for one token: the
-    family's mixer and the SwiGLU FFN."""
-    return _family(cfg).weight_macs(cfg) + 3 * cfg["d_model"] * cfg["d_ff"]
+def dense_layer_macs(cfg: dict, li: int, S: int):
+    """The default ``layer_macs``: the family's mixer and the SwiGLU FFN,
+    alike in every layer."""
+    fam = F.of(cfg)
+    return (fam.weight_macs(cfg) + 3 * cfg["d_model"] * cfg["d_ff"],
+            fam.sequence_macs(cfg, S))
+
+
+def layer_macs(cfg: dict, li: int, S: int):
+    """Layer ``li``'s multiply-adds: (its weight products for one token,
+    the rest over one sequence of S positions)."""
+    return F.hook(cfg, "layer_macs", dense_layer_macs)(cfg, li, S)
+
+
+def layer_weight_macs(cfg: dict, li: int = 0) -> int:
+    """Multiply-adds of layer ``li``'s weight products for one token."""
+    return layer_macs(cfg, li, 1)[0]
 
 
 def forward_flops(cfg: dict, B: int, S: int, head_positions: int) -> int:
     """Model FLOPs of one forward pass over B sequences of S tokens, with
     the head computed at ``head_positions`` positions of each."""
-    L = cfg["num_layers"]
-    macs = B * S * L * layer_weight_macs(cfg) + B * L * _family(cfg).sequence_macs(cfg, S)
+    macs = 0
+    for li in range(cfg["num_layers"]):
+        weight, sequence = layer_macs(cfg, li, S)
+        macs += B * S * weight + B * sequence
     macs += B * head_positions * cfg["d_model"] * cfg["vocab_size"]
     return 2 * macs
 

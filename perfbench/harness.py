@@ -7,9 +7,11 @@ Everything that belongs to one cell is data: the configuration is
 ``traffic/<traffic>.json`` (its ``kind`` names the loop in ``kinds/``
 that drives it), the limits of the comparison are
 ``limits/<workload>.json``, each per-layer metric is read by
-``metrics/<name>.py``, and a configuration's family (its mixer's weights,
-work and reference) is ``families/<family>.py``.  A new cell adds files
-and edits none.
+``metrics/<name>.py``, and a configuration's family (its layer's weights,
+work, reference and cache layout) is ``families/<family>.py``
+(``family.py``).  A cell takes the chips it asks for: its kind is handed
+each of their devices, and a kind that runs a job over ranks runs it
+with :func:`over_ranks`.  A new cell adds files and edits none.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ import importlib
 import importlib.util
 import json
 import math
+import os
+import queue
+import tempfile
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -65,10 +70,13 @@ def load_cell(workload: str, bench_path: Path = ROOT / "BENCHMARK.json") -> Cell
 @dataclass
 class Run:
     """What a kind's loop hands back: the window's counts, the outputs'
-    numbers compared with the reference, and the traced stretch."""
+    numbers compared with the reference, and the traced stretch (rank
+    0's, where the cell runs over ranks).  ``memory_peak_bytes`` is the
+    fullest chip's; ``chips`` the cell's."""
     kind: str
     config: dict
     traffic: dict
+    chips: int = 1
     setup_s: float = 0.0
     steps: int = 0
     window_s: float = 0.0
@@ -158,10 +166,68 @@ def result(cell: Cell, run: Run, trace: bool, device: dict) -> dict:
 
 
 def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device: torch.device,
-             t_start: float) -> Run:
+             t_start: float, devices=None) -> Run:
+    """One run of ``cell`` by its traffic's kind, on ``devices`` (one a
+    chip the cell asks for; ``device`` is the first)."""
     kind = importlib.import_module(f"kinds.{cell.traffic['kind']}")
-    return kind.run(cell, seed=seed, seconds=seconds, trace=trace, device=device,
-                    t_start=t_start)
+    run = kind.run(cell, seed=seed, seconds=seconds, trace=trace, device=device,
+                   t_start=t_start, devices=list(devices or [device]))
+    run.chips = cell.chips
+    return run
+
+
+def over_ranks(fn: Callable, args: tuple, devices, *, timeout: float):
+    """``fn(*args)`` as each rank of a job over ``devices`` (rank r on
+    ``devices[r]``; NCCL where each has a card of its own, gloo on the
+    CPU), each in the program's rank worker (its device set, the process
+    group joined over a file store in a directory of ``TMPDIR``).  Rank 0
+    runs in this process, so the profiler, the program's spans and the
+    check of loaded modules cover it; the others are spawned, and ended
+    and waited for before this returns.  Returns rank 0's value; raises
+    with a rank's traceback where one failed."""
+    import torch.multiprocessing as mp
+
+    import program as P
+
+    procs = P.procs
+    units = P.rank_units(devices)
+    backend = procs.backend_for([u.device for u in units])
+    ctx = mp.get_context("spawn")
+    reports = ctx.Queue()
+    threads = torch.get_num_threads()
+    box = {}
+
+    def lead(*a):
+        box["out"] = fn(*a)
+
+    with tempfile.TemporaryDirectory(prefix="perfbench-ranks-") as run_dir:
+        common = (units, backend, os.path.join(run_dir, "store"), run_dir, timeout, threads)
+        others = [ctx.Process(target=procs._worker, name=f"rank{r}", daemon=True,
+                              args=(r, *common, fn, args, reports))
+                  for r in range(1, len(units))]
+        wait = 0.0
+        try:
+            for p in others:
+                p.start()
+            mine = queue.Queue()
+            procs._worker(0, *common, lead, args, mine)
+            failed = [err for _, err in [mine.get()] if err]
+            for _ in others if not failed else ():
+                try:
+                    failed += [err for _, err in [reports.get(timeout=timeout)] if err]
+                except queue.Empty:
+                    failed.append("a rank gave no report")
+            if failed:
+                raise RuntimeError(f"a rank of {len(units)} ({backend}) failed:\n{failed[0]}")
+            wait = 30.0  # every rank has reported: what is left is its teardown
+            return box["out"]
+        finally:
+            for p in others:
+                p.join(wait)
+                if p.is_alive():
+                    p.kill()
+                    p.join(10.0)
+            reports.close()
 
 
 def forbidden_modules(modules) -> list:
@@ -182,7 +248,7 @@ def reset_peak(device: torch.device) -> None:
 
 
 def peak_bytes(device: torch.device) -> int:
-    return int(torch.cuda.max_memory_allocated()) if device.type == "cuda" else 0
+    return int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else 0
 
 
 def free(device: torch.device) -> None:

@@ -10,8 +10,10 @@ of ``compared_prefills`` others.  Each sampled prompt's logits and
 served token are compared, and for the last prefill's sampled prompts
 their whole cache, layer by layer: K, V and the conv buffer
 (``cache_err``) and, for the hybrid, each layer's SSM state
-(``state_err``).  The prompts of a prefill are independent rows, so a
-sample of them is judged as they were served in the full batch.
+(``state_err``); a family whose cache holds other entries, or holds a
+layer's entries elsewhere, says so (``cache_keys``, ``cache_entry``).
+The prompts of a prefill are independent rows, so a sample of them is
+judged as they were served in the full batch.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 import devtrace as tr
+import family as F
 import harness as H
 import program as P
 import tokens as T
@@ -29,6 +32,18 @@ import weights as W
 from reference.prefill import prefill as ref_prefill
 
 CACHE_KEYS = {"k": "cache_err", "v": "cache_err", "conv": "cache_err", "h": "state_err"}
+
+
+def cache_keys(cfg: dict) -> dict:
+    """The compared entries of the program's cache, each to the number it
+    falls under."""
+    return F.hook(cfg, "cache_keys", lambda cfg: CACHE_KEYS)(cfg)
+
+
+def cache_entry(cfg: dict, cache: dict, key: str, li: int):
+    """The program's entry ``key`` of layer ``li`` in ``cache``."""
+    return F.hook(cfg, "cache_entry", lambda cfg, cache, key, li: cache[key][li])(
+        cfg, cache, key, li)
 
 
 def rel_max(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -55,7 +70,7 @@ def draw_sample(seed: int, steps: int, B: int, prefills: int, rows: int) -> list
             for j in chosen + [last]]
 
 
-def run(cell, *, seed, seconds, trace, device, t_start):
+def run(cell, *, seed, seconds, trace, device, t_start, devices=None):
     cfg, tf = cell.config, cell.traffic
     marks = [("imports", time.perf_counter() - t_start)]
     sync = H.syncer(device)
@@ -109,13 +124,14 @@ def run(cell, *, seed, seconds, trace, device, t_start):
     H.reference_precision()
     numbers, worst = {"logits_err": 0.0, "token_gap": 0.0}, {}
     sample = draw_sample(seed, run.steps, B, tf["compared_prefills"], tf["compared_rows"])
+    keys = cache_keys(cfg)
     for j, rows in sample:
         idx = torch.tensor(rows, device=device)
 
         def judge(li, rc):
-            for key, name in CACHE_KEYS.items():
+            for key, name in keys.items():
                 if key in rc:
-                    err = rel_max(cache[key][li][idx], rc[key])
+                    err = rel_max(cache_entry(cfg, cache, key, li)[idx], rc[key])
                     numbers[name] = max(numbers.get(name, 0.0), err)
                     worst[key] = max(worst.get(key, (0.0, li)), (err, li))
 

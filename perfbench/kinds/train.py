@@ -27,7 +27,7 @@ import weights as W
 from reference import train as ref_train
 
 
-def run(cell, *, seed, seconds, trace, device, t_start):
+def run(cell, *, seed, seconds, trace, device, t_start, devices=None):
     cfg, tf = cell.config, cell.traffic
     marks = [("imports", time.perf_counter() - t_start)]
     sync = H.syncer(device)

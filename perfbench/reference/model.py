@@ -4,9 +4,12 @@ by layer: the parts every family shares.
 A layer is pre-norm: ``h += mixer(h)``, the family's mixer
 (``families/<family>.py``: attention for the dense family, attention and
 SSD heads side by side for the hybrid), then ``h += swiglu(norm(h))``.
+A family may replace the FFN, the whole layer, which leaves a layer
+takes, and put scales on the embedding and the logits (``family.py``).
 Norms are RMS norms scaled by (1 + scale); attention is grouped-query
 with rotary positions on split halves, causal, windowed where the
-configuration gives a window.
+configuration gives a window.  Untied heads are ``lm_head``; a tied head
+is the embedding's transpose.
 
 Every weight product goes through ``mm``: ``fp32_mm`` for the reference,
 ``fp8_mm`` (both operands rounded to float8 e4m3 with a per-tensor scale,
@@ -16,10 +19,11 @@ bfloat16, the product in float32) for a witness of bf16 rounding.
 """
 from __future__ import annotations
 
-import importlib
 import math
 
 import torch
+
+import family as F
 
 F8_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}  # largest finite values
 
@@ -103,32 +107,61 @@ def attend(q, k, v, window):
     return out.reshape(B, S, H, hd)
 
 
+def _scaled(x, scale):
+    return x if scale is None else x * scale
+
+
 class Decoder:
     """The configuration's decoder over stacked weights ``params`` (the
-    benchmark's layout; any float type, used as float32)."""
+    benchmark's layout; any float type, used as float32).  A stack may
+    also be a list of its entries (one tensor a layer of its kind)."""
 
     def __init__(self, cfg: dict, params: dict, mm=fp32_mm):
         self.cfg, self.p, self.mm = cfg, params, mm
         self.eps = cfg["norm_eps"]
-        self.family = importlib.import_module(f"families.{cfg['family']}")
+        self.family = F.of(cfg)
+
+    def _own(self, name):
+        return getattr(self.family, name, None)
 
     def layer_params(self, li: int) -> dict:
+        own = self._own("layer_params")
+        if own is not None:
+            return own(self, li)
+
         def pick(t):
             return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) else t[li]
         return pick(self.p["blocks"])
 
     def embed(self, tokens):
-        return self.p["embed"][tokens.long()].float()
+        scale = self._own("embed_scale")
+        h = self.p["embed"][tokens.long()].float()
+        return _scaled(h, scale and scale(self.cfg))
 
     def layer(self, lp: dict, h):
         """One layer: (new h, its cache entries, as the family's mixer
         makes them)."""
+        own = self._own("layer")
+        if own is not None:
+            return own(self, lp, h)
         out, cache = self.family.mixer(self, lp, h)
         h = h + out
+        return h + self.ffn(lp, h), cache
+
+    def ffn(self, lp: dict, h):
+        """The FFN's output over the residual ``h``: the family's, or a
+        SwiGLU after an RMS norm."""
+        own = self._own("ffn")
+        if own is not None:
+            return own(self, lp, h)
         g = lp["mlp"]
         x = rms(h, lp["mlp_ln"], self.eps)
-        h = h + self.mm(silu(self.mm(x, g["gate"])) * self.mm(x, g["up"]), g["down"])
-        return h, cache
+        return self.mm(silu(self.mm(x, g["gate"])) * self.mm(x, g["up"]), g["down"])
+
+    def head_weight(self):
+        return self.p["lm_head"] if "lm_head" in self.p else self.p["embed"].transpose(0, 1)
 
     def head(self, h):
-        return self.mm(rms(h, self.p["final_norm"], self.eps), self.p["lm_head"])
+        scale = self._own("logit_scale")
+        logits = self.mm(rms(h, self.p["final_norm"], self.eps), self.head_weight())
+        return _scaled(logits, scale and scale(self.cfg))

@@ -38,10 +38,11 @@ def _nest(flat: Dict[str, torch.Tensor]) -> dict:
 
 def loss(cfg: dict, params: dict, tokens: torch.Tensor, mm=fp32_mm) -> torch.Tensor:
     dec = Decoder(cfg, params, mm)
-    unbound = {k: t.unbind(0) for k, t in _flat(params["blocks"])}
+    own = getattr(dec.family, "layer_params", None)  # a family of layers of several kinds
+    unbound = None if own else {k: t.unbind(0) for k, t in _flat(params["blocks"])}
     h = dec.embed(tokens)
     for li in range(cfg["num_layers"]):
-        lp = _nest({k: t[li] for k, t in unbound.items()})
+        lp = own(dec, li) if own else _nest({k: t[li] for k, t in unbound.items()})
         h = checkpoint(lambda x, p: dec.layer(p, x)[0], h, lp, use_reentrant=False)
     logits = dec.head(h)
     targets = torch.roll(tokens.long(), -1, dims=1)

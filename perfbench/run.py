@@ -7,8 +7,9 @@ the outputs were correct, the steps attempted and failed, the cell's
 end-to-end metrics (``--trace 0``) or its per-layer metrics and the
 trace's breakdown (``--trace 1``), the device, and last each compared
 number beside its limit (also the last lines of standard error).  Needs
-as many CUDA devices as the cell asks for; exits non-zero with no result
-line otherwise, or when JAX or the JAX package has been loaded.
+as many CUDA devices as the cell asks for, and uses the first that many;
+exits non-zero with no result line otherwise, or when JAX or the JAX
+package has been loaded.
 """
 import time
 
@@ -51,9 +52,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     torch.set_num_threads(min(4, os.cpu_count() or 1))
-    device = torch.device("cuda", 0)
+    devices = [torch.device("cuda", i) for i in range(cell.chips)]
+    device = devices[0]
     run = H.run_cell(cell, seed=args.seed, seconds=args.seconds, trace=bool(args.trace),
-                     device=device, t_start=T_START)
+                     device=device, t_start=T_START, devices=devices)
     bad = H.forbidden_modules(sys.modules)
     if bad:
         print(f"perfbench: the run loaded {bad}", file=sys.stderr)

@@ -1,6 +1,7 @@
 """The program's own spans in a traced stretch (``repro_torch.trace``):
-a root span a step (``step.train`` or ``step.prefill``) and the spans
-inside it, each with its device time between two CUDA events.
+a root span a step (``step.train``, over ranks too, or ``step.prefill``)
+and the spans inside it, each with its device time between two CUDA
+events.
 
 The program records its spans while the profiler runs, which is over the
 lead-in step and the stretch: the records hold one root more than the
@@ -9,7 +10,7 @@ Nothing is read where the program has no such module or recorded no root
 (a program older than its spans)."""
 import importlib
 
-ROOTS = {"train": "step.train", "prefill": "step.prefill"}
+ROOTS = {"train": "step.train", "train_tp": "step.train", "prefill": "step.prefill"}
 
 
 def stretch_records(run):

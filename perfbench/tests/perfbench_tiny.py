@@ -25,7 +25,7 @@ def tiny_config(cfg: dict, **kw) -> dict:
 
 def workload(config: str, kind: str) -> str:
     """The name of ``BENCHMARK.json``'s cell of configuration ``config``
-    whose traffic is of ``kind`` (``train`` or ``prefill``)."""
+    whose traffic is of ``kind`` (``train``, ``train_tp`` or ``prefill``)."""
     import json
 
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -38,6 +38,12 @@ def workload(config: str, kind: str) -> str:
 
 TRAIN = workload("hymba-1.5b", "train")
 PREFILLS = [workload("granite-8b", "prefill"), workload("hymba-1.5b", "prefill")]
+TRAIN_TP = workload("granite-8b", "train_tp")
+# the cell over ranks at a small size: KV heads and the FFN's width split
+# over its four ranks, the FFN's columns a rank whole blocks of 256; in
+# float32, where the ranks and the reference agree to rounding (in bf16 at
+# this size the gaps are bf16's, above the limits set at the cell's size)
+TINY_TP = dict(num_kv_heads=4, d_ff=1024, vocab_size=256, dtype="float32")
 
 
 def tiny_cell(workload: str, **cfg_kw):
@@ -47,3 +53,8 @@ def tiny_cell(workload: str, **cfg_kw):
     cell.config = tiny_config(cell.config, **cfg_kw)
     cell.traffic = dict(cell.traffic, batch=4, seq_len=40)
     return cell
+
+
+def tiny_tp_cell(**cfg_kw):
+    """``TRAIN_TP`` at the small size; its ranks run on the CPU over gloo."""
+    return tiny_cell(TRAIN_TP, **dict(TINY_TP, **cfg_kw))

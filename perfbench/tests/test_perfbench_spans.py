@@ -21,9 +21,11 @@ import harness  # noqa: E402
 READERS = {"attn_ms.train": ("train", "model.attention"),
            "mixer_ms.train": ("train", "model.ssd"),
            "optimizer_ms.train": ("train", "optim.update"),
+           "attn_ms.train_tp": ("train_tp", "model.attention"),
+           "optimizer_ms.train_tp": ("train_tp", "optim.update"),
            "attn_ms.prefill": ("prefill", "model.attention"),
            "mixer_ms.prefill": ("prefill", "model.ssd")}
-ROOT = {"train": "step.train", "prefill": "step.prefill"}
+ROOT = {"train": "step.train", "train_tp": "step.train", "prefill": "step.prefill"}
 
 
 def run_of(kind, steps=2):
